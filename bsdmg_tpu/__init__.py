@@ -1,4 +1,4 @@
-"""bsdmg_tpu — TPU-native differentiable signed-distance renderer + mesh generator.
+"""bsdmg_tpu — differentiable signed-distance renderer + mesh generator.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
 ``Meterius/bevy-signed-distance-mesh-generation`` (Rust/Bevy/CUDA):
@@ -11,30 +11,27 @@ A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
   with Newton projection of vertices onto the isosurface
   (reference: cuda/modules/compute_mesh_generation.cu),
 
-re-designed TPU-first: batched functional transforms, static shapes with
-mask-and-compact instead of CPU stream compaction, Pallas kernels for the hot
-paths, and `jax.sharding` meshes for multi-chip scaling.
+built from batched functional transforms, static shapes with mask-and-compact
+instead of CPU stream compaction, a Pallas (Triton) render kernel for the GPU,
+and `jax.sharding` meshes for multi-device scaling.
 """
 
 import os as _os
 
-# Persistent XLA compilation cache: the kernels here are large while-loop
-# programs that take tens of seconds to compile; caching makes reruns and
-# benchmarks near-instant. Opt out with BSDMG_NO_CACHE=1.
-if not _os.environ.get("BSDMG_NO_CACHE"):
-    try:
-        import jax as _jax
+import jax as _jax
 
-        _jax.config.update(
-            "jax_compilation_cache_dir",
-            _os.environ.get(
-                "BSDMG_CACHE_DIR",
-                _os.path.expanduser("~/.cache/bsdmg_jax"),
-            ),
-        )
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+# Persistent XLA compilation cache. JAX_COMPILATION_CACHE_DIR, when set, is
+# read by JAX itself and nothing is set here; otherwise the cache lives at a
+# fixed path inside the checkout (the path is part of the cache key, so it
+# must not move between runs).
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update(
+        "jax_compilation_cache_dir",
+        _os.path.join(
+            _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+            ".jax_cache",
+        ),
+    )
 
 from bsdmg_tpu import config
 from bsdmg_tpu.config import (

@@ -6,7 +6,7 @@ ray, including the ``width_factor`` that reconciles the render-texture aspect
 with the presented-window aspect, and the per-pixel *cone radius* used as a
 depth-proportional collision threshold (common.cu:94-184).
 
-TPU-first: all transforms are batched over pixel grids; the cone radius for
+All transforms are batched over pixel grids; the cone radius for
 the full image is computed in one fused pass (4 corner rays per pixel) rather
 than per-thread lambdas.
 """

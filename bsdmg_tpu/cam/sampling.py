@@ -1,6 +1,6 @@
 """Texture fetch + bicubic (Catmull-Rom) sampling.
 
-TPU-native equivalents of the reference's texture helpers
+JAX equivalents of the reference's texture helpers
 (cuda/modules/common.cu:23-66): ``fetch_2d``/``index_2d`` (clamp-to-edge
 texel access) and ``cubic_interpolate``/``ndc_to_interpolated_value``
 (separable Catmull-Rom resampling of an NDC-addressed texture). The

@@ -28,13 +28,6 @@ class MarchConfig:
     #: (reference: cuda/includes/signed_distance.cu:179).
     normal_epsilon: float = 1e-3
 
-    #: Over-relaxation factor for enhanced sphere tracing (Keinert et al.
-    #: 2014): steps are scaled by this with an overlap-test fallback that
-    #: preserves correctness. 1.0 = classic sphere tracing, exactly the
-    #: reference's semantics (ray_marching.cu:28-44). The Pallas render
-    #: kernel honors values > 1; the pure-JAX oracle always runs classic.
-    relaxation: float = 1.0
-
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:

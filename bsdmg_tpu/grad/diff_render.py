@@ -105,25 +105,19 @@ def render_image_diff(
     config: MarchConfig = MarchConfig(),
     csdf=None,
     bb: tuple | None = None,
-    split=None,
-    use_pallas: bool | None = None,
 ) -> jax.Array:
     """Differentiable render: linear RGB ``(..., 3)`` with gradients flowing
     to ``params`` through hit depth and shading normals.
 
     ``csdf`` — the scene's component-form twin ``f(params, x, y, z)``
     (``Scene.csdf``) — switches to the SoA path: coordinate planes instead
-    of (..., 3) points, full TPU lane occupancy, same math (~10-20x faster).
-    ``bb`` (optional, SoA path) enables the sky slab skip — supply bounds
-    covering the surface over the optimization's whole parameter range.
-    ``use_pallas`` (SoA path) forces the march backend: ``False`` keeps the
-    forward march in plain XLA so the whole render stays GSPMD-partitionable
-    (a ``pallas_call`` has no sharding rule); ``None`` auto-selects.
+    of (..., 3) points, same math. ``bb`` (optional, SoA path) enables the
+    sky slab cull — supply bounds covering the surface over the
+    optimization's whole parameter range.
     """
     if csdf is not None:
         return _render_image_diff_c(
-            csdf, params, origins, directions, cone_radius, config,
-            bb=bb, split=split, use_pallas=use_pallas,
+            csdf, params, origins, directions, cone_radius, config, bb=bb
         )
     t_diff, hit = differentiable_hit(
         scene, params, origins, directions, cone_radius, config
@@ -139,29 +133,22 @@ def _render_image_diff_c(
     directions: jax.Array,
     cone_radius: jax.Array,
     config: MarchConfig = MarchConfig(),
-    use_pallas: bool | None = None,
-    interpret: bool = False,
     bb: tuple | None = None,
-    split=None,
     return_aux: bool = False,
 ):
     """Component-form differentiable render (same semantics as the points
     path; gradients via the implicit function theorem at the hit).
 
-    The stopped forward march runs in the SMEM-parameter Pallas kernel on
-    TPU (ops/pallas/diff_kernel.py) — the march carries no gradients (IFT
-    reattachment below), so the kernel needs no AD rule. ``bb`` (optional)
-    turns on the sky slab skip; it must conservatively bound the surface
-    over the whole parameter trust region of the optimization.
+    The forward march runs in XLA under ``stop_gradient`` — it carries no
+    gradients (IFT reattachment below). ``bb`` (optional) turns on the sky
+    slab cull; it must conservatively bound the surface over the whole
+    parameter trust region of the optimization.
 
     ``return_aux=True`` returns ``(image, aux)`` where ``aux`` is the
     stopped ``(outcome, min_margin, t_min)`` closest-approach record the
     silhouette-aware loss consumes (grad/edge.py)."""
-    from bsdmg_tpu.ops.pallas.render_kernel import _march
-    from bsdmg_tpu.sdf.normals import normal_jvp_c
+    from bsdmg_tpu.ops.trace import bb_parts, march_planes, slab_cull
 
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu" and origins.ndim == 3
     batch = origins.shape[:-1]
     cone = jnp.broadcast_to(jnp.asarray(cone_radius, jnp.float32), batch)
     ox, oy, oz = origins[..., 0], origins[..., 1], origins[..., 2]
@@ -170,33 +157,21 @@ def _render_image_diff_c(
     stopped = jax.tree.map(jax.lax.stop_gradient, params)
     f0 = lambda x, y, z: csdf(stopped, x, y, z)
 
-    min_m = t_min = None
-    if use_pallas:
-        from bsdmg_tpu.ops.pallas.diff_kernel import march_params_pallas
-
-        outs = march_params_pallas(
-            csdf, stopped, origins, directions, cone, config,
-            bb=bb, split=split, interpret=interpret, track_min=return_aux,
-        )
-        depth, steps, outcome, dfdt = outs[:4]
-        if return_aux:
-            min_m, t_min = outs[4], outs[5]
-        t0 = jax.lax.stop_gradient(depth)
-        px, py, pz = ox + t0 * dx, oy + t0 * dy, oz + t0 * dz
-    else:
-        outs = _march(
-            f0, config, (ox, oy, oz), (dx, dy, dz), cone,
-            jnp.ones(batch, bool), jnp.zeros(batch, jnp.float32),
-            jnp.zeros(batch, jnp.int32), config.step_limit,
-            track_min=return_aux,
-        )
-        depth, steps, outcome = outs[:3]
-        if return_aux:
-            min_m, t_min = outs[4], outs[5]
-        t0 = jax.lax.stop_gradient(depth)
-        px, py, pz = ox + t0 * dx, oy + t0 * dy, oz + t0 * dz
-        # IFT denominator: df/dt along the ray at the hit, params stopped
-        _, dfdt = jax.jvp(f0, (px, py, pz), (dx, dy, dz))
+    active0 = t_stop = None
+    if bb is not None:
+        lo, hi, slack = bb_parts(bb)
+        miss, t_exit = slab_cull(ox, oy, oz, dx, dy, dz, lo, hi, cone, config, slack)
+        active0 = ~miss
+        t_stop = jnp.minimum(t_exit, config.depth_limit)
+    outs = march_planes(
+        f0, config, (ox, oy, oz), (dx, dy, dz), cone, active0,
+        t_stop=t_stop, track_min=return_aux,
+    )
+    depth, _, outcome = outs[:3]
+    t0 = jax.lax.stop_gradient(depth)
+    px, py, pz = ox + t0 * dx, oy + t0 * dy, oz + t0 * dz
+    # IFT denominator: df/dt along the ray at the hit, params stopped
+    _, dfdt = jax.jvp(f0, (px, py, pz), (dx, dy, dz))
     denom = dfdt - cone
     denom = jnp.where(jnp.abs(denom) < 1e-6, -1e-6, denom)
     denom = jax.lax.stop_gradient(denom)
@@ -222,6 +197,7 @@ def _render_image_diff_c(
     r, g, b = shade_planes(nx, ny, nz, outcome)
     img = jnp.stack([r, g, b], axis=-1)
     if return_aux:
+        min_m, t_min = outs[3:]
         return img, (outcome, jax.lax.stop_gradient(min_m),
                      jax.lax.stop_gradient(t_min))
     return img
@@ -237,22 +213,13 @@ def render_loss_and_grad(
     config: MarchConfig = MarchConfig(),
     csdf=None,
     bb: tuple | None = None,
-    split=None,
-    use_fused: bool | None = None,
     edge_weight: float = 0.0,
     edge_band: float | None = None,
     target_miss: jax.Array | None = None,
-    interpret: bool = False,
 ):
     """L2 image loss against ``target`` and its gradient w.r.t. ``params`` —
-    the inverse-rendering training step.
-
-    On TPU with a component-form scene this runs as ONE fused Pallas kernel
-    (march + IFT + shade + loss + in-kernel reverse-mode with SMEM gradient
-    accumulation — ops/pallas/diff_kernel.py::render_loss_grad_pallas),
-    ~2x the per-stage path. Elsewhere it is the plain
-    ``jax.value_and_grad`` of the differentiable render (the oracle the
-    fused kernel is tested against).
+    the inverse-rendering training step: ``jax.value_and_grad`` of the
+    differentiable render.
 
     ``edge_weight > 0`` adds the silhouette-aware closest-approach loss
     (grad/edge.py): outcome-mismatched pixels pull the surface toward /
@@ -261,12 +228,6 @@ def render_loss_and_grad(
     ``target_miss`` overrides the target's miss mask (else classified from
     RGB); ``edge_band`` defaults to ``4 * config.collision_distance``.
     """
-    if use_fused is None:
-        use_fused = (
-            csdf is not None
-            and jax.default_backend() == "tpu"
-            and origins.ndim == 3
-        )
     edge_weight = float(edge_weight)
     if edge_weight and csdf is None:
         raise ValueError(
@@ -277,20 +238,12 @@ def render_loss_and_grad(
         4.0 * config.collision_distance if edge_band is None
         else float(edge_band)
     )
-    if use_fused:
-        from bsdmg_tpu.ops.pallas.diff_kernel import render_loss_grad_pallas
-
-        return render_loss_grad_pallas(
-            csdf, params, target, origins, directions, cone_radius, config,
-            bb=bb, split=split, edge_weight=edge_weight, edge_band=band,
-            target_miss=target_miss, interpret=interpret,
-        )
 
     if not edge_weight:
         def loss_fn(p):
             img = render_image_diff(
                 scene, p, origins, directions, cone_radius, config,
-                csdf=csdf, bb=bb, split=split,
+                csdf=csdf, bb=bb,
             )
             return jnp.mean((img - target) ** 2)
 
@@ -310,7 +263,7 @@ def render_loss_and_grad(
     def loss_fn(p):
         img, (outcome, min_m, t_min) = _render_image_diff_c(
             csdf, p, origins, directions, cone_radius, config,
-            bb=bb, split=split, return_aux=True, interpret=interpret,
+            bb=bb, return_aux=True,
         )
         loss = jnp.mean((img - target) ** 2)
         edge = edge_loss_planes(

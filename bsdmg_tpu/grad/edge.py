@@ -7,7 +7,7 @@ no gradient, so an image-loss fit is only valid inside a small basin
 boundary information with an **envelope-theorem closest-approach loss**:
 
 * the march records, per ray, ``min_margin = min_t (f(x(t)) - cone*t)`` and
-  the depth ``t_min`` where it occurred (``_march(track_min=True)``);
+  the depth ``t_min`` where it occurred (``ops.trace.march_planes(track_min=True)``);
 * by the envelope theorem, ``d(min_margin)/dparams`` is just the parameter
   gradient of ONE SDF eval at the recorded point (``t_min`` held fixed);
 * pixels whose *outcome* disagrees with the target get a hinge on that
@@ -31,7 +31,7 @@ import jax.numpy as jnp
 
 #: min_margin sentinel for rays the march never sampled (slab-culled sky).
 #: MUST equal the initializer the march writes
-#: (ops/pallas/render_kernel.py::_march, ``jnp.full_like(depth0, 1e9)``) —
+#: (ops/trace.py::march_planes) —
 #: a single source of truth for "this ray carries no closest-approach
 #: record". Comparisons use strict ``<`` so the sentinel itself reads as
 #: untracked.

@@ -9,11 +9,11 @@ that lowers to
   the scene's params pytree, so composed scenes are differentiable and
   fit-able exactly like the built-ins), and
 * a **baked** component SDF (fields resolved to Python floats) for the
-  fused Pallas render kernel (ops/pallas/csdf.py consumes it via
+  GPU render kernel (ops/pallas/csdf.py consumes it via
   ``Scene.spec``), plus
 * conservative **bounds** for the kernel's slab cull, derived per node with
   the cull's soundness contract (``f >= d(p, box) - slack`` — see
-  ops/pallas/render_kernel.py::_slab_cull).
+  ops/trace.py::slab_cull).
 
 Spec format (JSON-compatible)::
 

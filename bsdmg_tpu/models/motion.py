@@ -1,6 +1,6 @@
 """Scene animation: the reference's motion components as pure functions.
 
-TPU-native equivalent of the reference's Bevy motion system
+JAX equivalent of the reference's Bevy motion system
 (src/example_scene.rs:63-160): three motion components —
 :class:`RotateAxisMotion`, :class:`SphericCyclicMotion`,
 :class:`AxisCyclicMotion` — plus :func:`apply_motion` which advances a set of

@@ -29,8 +29,8 @@ class Scene:
     """A differentiable SDF scene: ``sdf(params, p)`` plus default params.
 
     ``csdf``, when present, is the component-form twin ``f(params, x, y, z)``
-    operating on coordinate planes — differentiable w.r.t. ``params`` and
-    lane-efficient on TPU (see bsdmg_tpu/sdf/primitives.py SoA section).
+    operating on coordinate planes — differentiable w.r.t. ``params`` (see
+    bsdmg_tpu/sdf/primitives.py SoA section).
     Distinct from ``ops.pallas.compile_scene_csdf``, which bakes params as
     compile-time constants for the non-differentiable render kernel.
     """
@@ -43,9 +43,7 @@ class Scene:
     #: built by ``compose_scene``; lets ops/pallas/csdf.py bake the tree for
     #: the render kernel and derive slab-cull bounds
     spec: Any | None = None
-    #: baked SdfGrid (models/mesh_sdf.py) — present only on mesh-asset
-    #: scenes; routes rendering to the hybrid Pallas grid tracer
-    #: (ops/pallas/grid_kernel.py), which handles any grid resolution
+    #: baked SdfGrid (models/mesh_sdf.py) — present only on mesh-asset scenes
     grid: Any | None = None
 
     def bind(self, params: Params | None = None) -> Callable[[jax.Array], jax.Array]:

@@ -1,7 +1,8 @@
 """Compute ops: sphere tracing, shading, voxel refinement, marching cubes.
 
-Each op has a pure-JAX implementation (the correctness oracle, runs anywhere)
-and, for the hot paths, a Pallas TPU kernel behind the same API.
+Each op has a pure-JAX implementation (the correctness oracle, runs
+anywhere); the render hot path adds a Pallas (Triton) GPU kernel
+(``ops/pallas/render_triton.py``).
 """
 
 from bsdmg_tpu.ops.trace import (

@@ -3,12 +3,11 @@
 The reference writes INFINITY/NaN sentinels from the kernel and compacts on
 the **CPU** with ``Vec::retain`` after a blocking D2H copy
 (src/cuda/mod.rs:184-194, cuda/modules/compute_mesh_generation.cu:53-57).
-On TPU everything stays on device. Implementation note: the textbook
-prefix-sum + scatter compaction is pathologically slow in XLA:TPU (dynamic
-scatter of 2M rows measured 85 ms); a stable ``lax.sort`` on a 0/1 keep-key
-— survivors float to the front in original order — runs the same compaction
-in 7 ms (bitonic sort is a native TPU pattern). Only the scalar count ever
-needs to reach the host (to size the next stage's static shapes).
+Here everything stays on device: a stable ``lax.sort`` on a 0/1 keep-key —
+survivors float to the front in original order — compacts without a
+dynamic scatter. Only the scalar count ever needs to reach the host (to
+size the next stage's static shapes). Whether cumsum + scatter compaction is
+faster on a GPU is not measured (ROADMAP S3).
 """
 
 from __future__ import annotations

@@ -8,20 +8,16 @@ project every vertex onto the isosurface, compute finite-difference normals,
 and fix the winding by comparing the geometric triangle normal against the
 SDF normal at the centroid. Unused triangle slots carry NaN sentinels.
 
-TPU-native redesign (round 2):
+Design:
 
 * Projection is **per edge, not per triangle slot**: a voxel's triangle
   table references at most 12 distinct edges but up to 15 vertex slots, and
   every used edge is a sign-crossing edge (invariant tested in
   tests/test_mesh.py). Each crossing edge is Newton-projected once on flat
-  coordinate planes — 12 lanes/voxel instead of 15, and the identical
-  repeated-slot trajectories of round 1 are computed once.
-* On TPU the projection + fd4 normals run in a Pallas kernel with
-  **per-tile convergence** (ops/pallas/mesh_kernel.py) — round 1's single
-  whole-batch ``while_loop`` let one slow vertex gate millions of lanes.
-  Elsewhere (CPU tests) an equivalent XLA while serves as the oracle.
+  coordinate planes — 12 lanes/voxel instead of 15, and repeated-slot
+  trajectories are computed once.
 * Triangle slots then *select* their edge's result (12 ``where``s per
-  plane — no dynamic gather, which is slow on this backend).
+  plane).
 
 Triangles live in a fixed ``(N, 5)`` budget with a boolean validity mask
 instead of NaN sentinels; the 5-triangle budget matches src/cuda/mod.rs:205.
@@ -33,7 +29,6 @@ from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from bsdmg_tpu.config import MeshGenConfig
 from bsdmg_tpu.ops.tables import (
@@ -45,12 +40,6 @@ from bsdmg_tpu.ops.tables import (
 from bsdmg_tpu.sdf.normals import as_component
 
 SdfFn = Callable[[jax.Array], jax.Array]
-
-# (256, 15) triangle-slot edge ids with 15 = invalid, as f32 for the exact
-# one-hot MXU lookup in the fused path (values 0..15 are bf16/f32-exact).
-# Kept as numpy so importing this module never initializes a JAX backend.
-_TRI15_NP = np.asarray(MC_TRIANGLE_CASES).reshape(256, 15)
-_TRI15_TABLE = np.where(_TRI15_NP < 0, 15, _TRI15_NP).astype(np.float32)
 
 
 class TriangleSoup(NamedTuple):
@@ -106,18 +95,15 @@ def _grad_fd4_c(csdf, x, y, z, eps):
 
 
 def _value_and_grad_vjp_c(csdf, x, y, z):
-    """SDF value + all three partials in one forward + one reverse pass
-    (identical formula to ops/pallas/mesh_kernel.py::_value_and_grad_vjp so
-    the oracle and the kernel stay twins)."""
+    """SDF value + all three partials in one forward + one reverse pass."""
     sd, vjp_fn = jax.vjp(csdf, x, y, z)
     gx, gy, gz = vjp_fn(jnp.ones_like(sd))
     return sd, gx, gy, gz
 
 
 def _project_edges_xla(csdf, x, y, z, active, *, iters, tol, eps, use_grad):
-    """Whole-batch Newton projection + fd4 normals — the CPU/oracle twin of
-    ops/pallas/mesh_kernel.py::project_edges_pallas (same update formulas,
-    same guards, so the two paths agree to float-fusion noise)."""
+    """Whole-batch Newton projection + fd4 normals of the crossing edges
+    (compute_mesh_generation.cu:95-101), bounded to ``iters`` steps."""
     if use_grad:
         val_grad = lambda a, b, c: _value_and_grad_vjp_c(csdf, a, b, c)
     else:
@@ -149,104 +135,6 @@ def _project_edges_xla(csdf, x, y, z, active, *, iters, tol, eps, use_grad):
     return px, py, pz, fgx * inv, fgy * inv, fgz * inv
 
 
-def _finish_fused(
-    csdf, safe, vs, nib, active_e, config, interpret,
-) -> TriangleSoup:
-    """Fused-kernel tail of :func:`extract_triangles`.
-
-    Packs the per-voxel crossing bits and triangle-slot edge ids (``nib``,
-    already 15-masked for invalid slots/padding voxels) into int32 planes and
-    runs ops/pallas/mc_fused.py (midpoints, in-register compaction, Newton,
-    fd4 normals, pick, winding + swap all in-kernel). Triangle validity and
-    the beyond-budget overflow count come back in the kernel's packed meta
-    plane — no XLA-side rank bookkeeping (the old cumsum + 12-way-select
-    block cost ~10x the kernel itself at 66k voxels).
-
-    The rare-path ambiguous-winding re-resolve (the reference's centroid
-    stencil, compute_mesh_generation.cu:103-113) runs behind a ``lax.cond``
-    *in the kernel's plane layout*, before the (45, N) -> (N, 5, 3, 3)
-    transposes, so the cond's operand capture doesn't force an extra
-    materialization of the transposed buffers.
-    """
-    from bsdmg_tpu.ops.pallas.mc_fused import mc_fused_pallas
-
-    n = safe.shape[0]
-    budget = min(max(int(config.edge_budget), 1), 12)
-    acti = active_e.astype(jnp.int32)
-    t0 = sum((nib[:, s] << (4 * s)) for s in range(8))
-    t1 = sum((nib[:, s] << (4 * (s - 8))) for s in range(8, 15))
-    cross_bits = sum((acti[:, e] << e) for e in range(12))
-
-    use_grad = config.projection_normals == "grad"
-    winding = (
-        "vertex_mean"
-        if config.winding_normals == "vertex_mean"
-        else "centroid_fd4"
-    )
-    pos, nrm, dot, amb, meta = mc_fused_pallas(
-        csdf, safe[:, 0], safe[:, 1], safe[:, 2], cross_bits, t0, t1, vs,
-        budget=budget, iters=config.newton_iters,
-        tol=config.newton_tolerance, eps=config.normal_epsilon,
-        use_grad=use_grad, winding=winding, interpret=interpret,
-    )
-    tri_valid = ((meta[:, None] >> jnp.arange(5)[None, :]) & 1) > 0  # (N, 5)
-    edge_overflow = jnp.sum(meta >> 5)
-
-    if winding == "vertex_mean":
-        # ambiguous lanes (vertex normals nearly cancel): undo the kernel's
-        # noise-sign swap and re-resolve with the centroid stencil — the
-        # exact semantics of the staged path's lax.cond fallback
-        ambb = (amb > 0) & (((meta[None, :] >> jnp.arange(5)[:, None]) & 1)
-                            > 0)  # (5, N)
-
-        def fix(vn):
-            v, nn = vn  # (45, N) planes; slot s coord c = plane 3*s + c
-            outv = [v[p] for p in range(45)]
-            outn = [nn[p] for p in range(45)]
-            def centroid(c):  # (5N,) coordinate-c centroids, t-major
-                return jnp.concatenate([
-                    (v[9 * t + c] + v[9 * t + 3 + c] + v[9 * t + 6 + c]) / 3.0
-                    for t in range(5)
-                ])
-
-            ax, ay, az = _grad_fd4_c(
-                csdf, centroid(0), centroid(1), centroid(2),
-                config.normal_epsilon,
-            )
-            ax = ax.reshape(5, n)
-            ay = ay.reshape(5, n)
-            az = az.reshape(5, n)
-            for t in range(5):
-                pa, pb, pc = 9 * t, 9 * t + 3, 9 * t + 6
-                kflip = (dot[t] <= 0.0) & ambb[t]
-                # undo the kernel's noise-sign swap (slots a <-> c)
-                ua = [jnp.where(kflip, v[pc + c], v[pa + c]) for c in range(3)]
-                uc = [jnp.where(kflip, v[pa + c], v[pc + c]) for c in range(3)]
-                na = [jnp.where(kflip, nn[pc + c], nn[pa + c]) for c in range(3)]
-                nc = [jnp.where(kflip, nn[pa + c], nn[pc + c]) for c in range(3)]
-                e1 = [v[pb + c] - ua[c] for c in range(3)]
-                e2 = [uc[c] - ua[c] for c in range(3)]
-                gx = e1[1] * e2[2] - e1[2] * e2[1]
-                gy = e1[2] * e2[0] - e1[0] * e2[2]
-                gz = e1[0] * e2[1] - e1[1] * e2[0]
-                dotc = gx * ax[t] + gy * ay[t] + gz * az[t]
-                oflip = (dotc <= 0.0) & ambb[t]
-                for c in range(3):
-                    outv[pa + c] = jnp.where(oflip, uc[c], ua[c])
-                    outv[pc + c] = jnp.where(oflip, ua[c], uc[c])
-                    outn[pa + c] = jnp.where(oflip, nc[c], na[c])
-                    outn[pc + c] = jnp.where(oflip, na[c], nc[c])
-            return jnp.stack(outv, 0), jnp.stack(outn, 0)
-
-        pos, nrm = jax.lax.cond(
-            jnp.any(ambb), fix, lambda vn: vn, (pos, nrm)
-        )
-
-    verts = pos.T.reshape(n, 5, 3, 3)
-    normals = nrm.T.reshape(n, 5, 3, 3)
-    return TriangleSoup(verts, normals, tri_valid, edge_overflow)
-
-
 def extract_triangles(
     sdf: SdfFn,
     lowers: jax.Array,
@@ -254,10 +142,6 @@ def extract_triangles(
     count: jax.Array | None = None,
     config: MeshGenConfig = MeshGenConfig(),
     csdf=None,
-    *,
-    use_pallas: bool | None = None,
-    use_fused: bool | None = None,
-    interpret: bool = False,
 ) -> TriangleSoup:
     """Marching cubes + Newton vertex projection + winding fix.
 
@@ -269,40 +153,14 @@ def extract_triangles(
       config: mesh-generation parameters.
       csdf: optional component-form SDF ``f(x, y, z) -> d`` with parameters
         baked (``ops.pallas.compile_scene_csdf``). All SDF evaluation runs
-        on flat coordinate planes — full TPU lane occupancy — falling back
-        to a wrapper around ``sdf`` when absent.
-      use_pallas: run the projection in the per-tile Pallas kernel. Default:
-        only when a baked ``csdf`` was provided and the backend is TPU.
-      use_fused: run midpoints/compaction/Newton/normals/pick/winding in the
-        single fused kernel (ops/pallas/mc_fused.py). Default: whenever
-        ``use_pallas`` and edge midpoints are in effect (the reference
-        semantics); ``interpolate_edges=True`` falls back to the staged path.
+        on flat coordinate planes, falling back to a wrapper around ``sdf``
+        when absent.
 
     Returns a :class:`TriangleSoup` with the same per-voxel 5-triangle budget
     as the reference (src/cuda/mod.rs:205).
     """
-    baked = csdf is not None
     if csdf is None:
         csdf = as_component(sdf)
-    if use_pallas is None:
-        # csdfs that close over device arrays (grid-SDF mesh-asset scenes)
-        # cannot enter a Mosaic kernel — kernels capture scalars only.
-        # grid_csdf marks itself ``pallas_compatible=False``; wrappers lose
-        # the mark, so also sniff the closure's jaxpr for big captured
-        # constants (the R^3 table shows up in ClosedJaxpr.consts).
-        use_pallas = (
-            baked
-            and getattr(csdf, "pallas_compatible", True)
-            and jax.default_backend() == "tpu"
-        )
-        if use_pallas:
-            try:
-                z = jnp.zeros((8,), jnp.float32)
-                consts = jax.make_jaxpr(csdf)(z, z, z).consts
-                if any(getattr(c, "size", 0) > 256 for c in consts):
-                    use_pallas = False
-            except Exception:  # noqa: BLE001 — sniffing must never break MC
-                pass
     n = lowers.shape[0]
     valid_voxel = (
         jnp.ones(n, bool) if count is None else jnp.arange(n) < count
@@ -325,33 +183,6 @@ def extract_triangles(
     crossing = inside[:, ec0] != inside[:, ec1]  # (N, 12)
     active_e = crossing & valid_voxel[:, None]
 
-    if use_fused is None:
-        use_fused = use_pallas and not config.interpolate_edges
-    if use_fused:
-        # round-3 production path: midpoints -> in-register compaction ->
-        # Newton -> normals -> pick -> winding all in ONE Pallas kernel
-        # (ops/pallas/mc_fused.py); only classify + table lookup stay here.
-        # The 256-case table lookup is a one-hot bf16 matmul on the MXU:
-        # exact (0/1 one-hot x integer nibbles <= 15, f32 accumulation) and
-        # ~7x faster than the per-row gather on this backend.
-        oh = jax.nn.one_hot(case, 256, dtype=jnp.bfloat16)
-        nib = jnp.dot(
-            oh, jnp.asarray(_TRI15_TABLE, jnp.bfloat16),
-            preferred_element_type=jnp.float32,
-        ).astype(jnp.int32)  # (N, 15), 15 = invalid slot
-        nib = jnp.where(valid_voxel[:, None], nib, 15)
-        try:
-            return _finish_fused(
-                csdf, safe, vs, nib, active_e, config, interpret
-            )
-        except ValueError as e:
-            # a csdf that closes over device arrays (grid-SDF mesh-asset
-            # scenes: the R^3 table) cannot enter a Pallas kernel — Mosaic
-            # kernels only capture scalars. Fall through to the staged XLA
-            # path, whose gathers are fine outside the kernel.
-            if "captures constants" not in str(e):
-                raise
-
     tri_edges = jnp.asarray(MC_TRIANGLE_CASES)[case]  # (N, 5, 3) edge ids, -1 pad
     tri_valid = (tri_edges[..., 0] >= 0) & valid_voxel[:, None]  # (N, 5)
 
@@ -372,18 +203,15 @@ def extract_triangles(
         sz = safe[:, 2:3] + mids[None, :, 2]
 
     # rank-compact crossing edges (edge_budget < 12): of the 12 edge lanes
-    # only ~4 cross on smooth scenes, and uniformly spread actives keep
-    # EVERY projection tile iterating — packing each voxel's crossing edges
-    # into the first `budget` lanes halves the lanes the Newton kernel
-    # streams. Pure rank-select vector ops: no sort, no gather (both cost
-    # per row on this backend — see ops/compact.py).
+    # only ~4 cross on smooth scenes, so packing each voxel's crossing edges
+    # into the first `budget` lanes halves the lanes the Newton projection
+    # streams. Pure rank-select vector ops: no sort, no gather.
     budget = min(max(int(config.edge_budget), 1), 12)
     compacting = budget < 12
     idx = jnp.maximum(tri_edges.reshape(n, 5 * 3), 0)  # (N, 15) edge ids
 
     def pick12(plane12):
-        # triangle slots select a per-edge plane: 12 wheres per plane —
-        # no dynamic gather (row gathers are pathological on this backend)
+        # triangle slots select a per-edge plane: 12 wheres per plane
         out = jnp.broadcast_to(plane12[:, 0:1], idx.shape)
         for e in range(1, 12):
             out = jnp.where(idx == e, plane12[:, e : e + 1], out)
@@ -425,28 +253,11 @@ def extract_triangles(
     # (compute_mesh_generation.cu:95-97; bounded per MeshGenConfig) + the
     # reference's fd4 exported normal at the projected point (:99-101).
     use_grad = config.projection_normals == "grad"
-    if use_pallas:
-        from bsdmg_tpu.ops.pallas.mesh_kernel import project_edges_pallas
-
-        try:
-            px, py, pz, nx, ny, nz = project_edges_pallas(
-                csdf, gx, gy, gz, flat_act,
-                iters=config.newton_iters, tol=config.newton_tolerance,
-                eps=config.normal_epsilon, use_grad=use_grad,
-                interpret=interpret,
-            )
-        except ValueError as e:
-            # grid-SDF csdfs close over the R^3 table, which a Pallas
-            # kernel cannot capture — drop to the XLA twin (same math)
-            if "captures constants" not in str(e):
-                raise
-            use_pallas = False
-    if not use_pallas:
-        px, py, pz, nx, ny, nz = _project_edges_xla(
-            csdf, gx, gy, gz, flat_act,
-            iters=config.newton_iters, tol=config.newton_tolerance,
-            eps=config.normal_epsilon, use_grad=use_grad,
-        )
+    px, py, pz, nx, ny, nz = _project_edges_xla(
+        csdf, gx, gy, gz, flat_act,
+        iters=config.newton_iters, tol=config.newton_tolerance,
+        eps=config.normal_epsilon, use_grad=use_grad,
+    )
     planes = [
         jnp.where(flat_act, p, 0.0).reshape(n, cols_out)
         for p in (px, py, pz, nx, ny, nz)

@@ -1,17 +1,13 @@
-"""Pallas TPU kernels for the hot paths.
+"""Component-form scenes and the GPU render kernel.
 
-* ``render_kernel`` — the fused tiled sphere tracer + shade (the TPU
-  analogue of the reference's warp-coherent pixel swizzle + divergent loop,
-  cuda/modules/common.cu:186-215 / cuda/includes/ray_marching.cu), and the
-  one march source of truth (``sphere_trace_pallas`` wraps it).
-* ``diff_kernel`` — the march with runtime SDF parameters in SMEM (the
-  stopped forward pass of the differentiable render).
-* ``mesh_kernel`` — per-tile-convergent Newton projection for marching cubes.
-* ``csdf`` — component-form (x, y, z planes) scene SDFs so kernels stay in
-  native (sublane, lane) layouts instead of a trailing length-3 axis.
+* ``csdf`` — component-form (x, y, z planes) scene SDFs with parameters
+  baked as Python constants, plus the scene bounds and near/far split the
+  render kernel's culling uses.
+* ``render_triton`` — the fused per-tile sphere tracer + shade, a Pallas
+  kernel through Triton (one program per 8x16 pixel tile, the reference's
+  128-thread block, cuda/modules/compute_render.cu:21-97).
 """
 
 from bsdmg_tpu.ops.pallas.csdf import compile_scene_csdf
-from bsdmg_tpu.ops.pallas.render_kernel import sphere_trace_pallas
 
-__all__ = ["compile_scene_csdf", "sphere_trace_pallas"]
+__all__ = ["compile_scene_csdf"]

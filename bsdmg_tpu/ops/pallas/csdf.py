@@ -1,16 +1,16 @@
-"""Component-form SDFs for Pallas kernels.
+"""Component-form SDFs with baked parameters.
 
-Inside a TPU kernel, arrays live in (sublane, lane) tiles; a trailing
-length-3 vector axis forces awkward relayouts. A *component SDF* ("csdf")
-takes three same-shape coordinate planes and returns a distance plane::
+A *component SDF* ("csdf") takes three same-shape coordinate planes and
+returns a distance plane, so no array carries a trailing length-3 axis::
 
     csdf(x, y, z) -> d      # all (S, L) arrays
 
 :func:`compile_scene_csdf` lowers the built-in scene families (reference
 object/render scene, sphere, box, capsule sets) to component form with the
 parameters baked as compile-time constants — the right trade for a render
-kernel that retraces only when the scene changes. Scenes outside the
-registry fall back to the pure-JAX tracer path.
+kernel that retraces only when the scene changes (a Pallas kernel inlines
+Python-float constants). Scenes outside the registry fall back to the
+param-traced ``Scene.csdf``.
 """
 
 from __future__ import annotations
@@ -98,7 +98,7 @@ def _axis_aligned_groups(starts: np.ndarray, ends: np.ndarray):
 def capsule_set_sq_csdf(starts: np.ndarray, ends: np.ndarray) -> CSdf:
     """*Squared* min distance to a static capsule-axis set.
 
-    Two TPU optimizations over the reference's per-edge ``sd_line`` loop
+    Two optimizations over the reference's per-edge ``sd_line`` loop
     (signed_distance.cu:93-113):
 
     * within a same-radius group ``min`` commutes with ``sqrt``, so the
@@ -106,7 +106,7 @@ def capsule_set_sq_csdf(starts: np.ndarray, ends: np.ndarray) -> CSdf:
     * axis-aligned edges (every box skeleton) share their clamped axial
       projection per parallel-edge group, and the perpendicular squared
       offsets are cached per distinct coordinate — a 4-edge group costs
-      ~24 VPU ops instead of ~76.
+      ~24 ops instead of ~76.
     """
     groups = _axis_aligned_groups(starts, ends)
 
@@ -267,7 +267,7 @@ def _reference_object_bounds(p):
     edge geometry — in reference-compat mode the skeleton's misplaced edges
     (signed_distance.cu:101) extend far beyond the nominal box, so a
     size-derived bound would cull real geometry (caught by
-    tests/test_pallas.py::test_bounds_contain_surface)."""
+    tests/test_pallas.py::TestCsdf::test_bounds_contain_surface)."""
     starts, ends = _box_skeleton_edges(
         np.asarray(p["skeleton_center"], np.float32),
         np.asarray(p["skeleton_size"], np.float32),
@@ -380,16 +380,12 @@ def compile_scene_csdf(scene: Scene, params=None) -> CSdf | None:
     if scene.name == "box":
         return box_csdf(np.zeros(3), np.asarray(p["size"]))
     if scene.name == "mandelbulb":
-        from bsdmg_tpu.ops.pallas.mathx import acos_c, atan2_c
         from bsdmg_tpu.sdf.primitives import sd_mandelbulb_c
 
         s = float(p["scale"]) * 0.4
 
         def f(x, y, z):
-            # polynomial inverse trig: Mosaic has no acos/atan2 (see mathx)
-            return sd_mandelbulb_c(
-                x / s, y / s, z / s, arccos=acos_c, arctan2=atan2_c
-            ) * s
+            return sd_mandelbulb_c(x / s, y / s, z / s) * s
 
         return f
     if scene.name == "wrapped_object":

@@ -6,7 +6,7 @@ on ``sdf(corner) <= 0`` (it straddles the surface). The reference evaluates
 all 8 corners of all 8 children — 64 SDF evals per parent — and compacts on
 the CPU.
 
-TPU-native redesign:
+Redesign:
 
 * The 8 children of a parent share corners: the unique corner set is the
   parent's 3x3x3 lattice — **27 evals per parent instead of 64** (2.4x fewer),
@@ -71,9 +71,8 @@ def refine_masks(
     A child is a border voxel iff its 8 corner occupancies disagree
     (compute_mesh_generation.cu:36-49). Corner signs come from the shared
     3x3x3 parent lattice (27 evals/parent). SDF evaluation runs in
-    component (SoA) form — flat coordinate planes, full lane occupancy —
-    through ``csdf`` when the scene provides one (~30x faster than the
-    (N, 27, 3) AoS layout on TPU).
+    component (SoA) form — flat coordinate planes — through ``csdf`` when
+    the scene provides one.
     """
     if csdf is None:
         csdf = as_component(sdf)
@@ -91,11 +90,9 @@ def refine_masks(
     return border & valid[:, None]
 
 
-#: Compaction granule of the packed fast path: 64 parents x 8 children.
-#: One block is a handful of (8, 128) vregs — small enough that ~20-50% of
-#: blocks staying alive still cuts the fine sort 2-4x, big enough that the
-#: alive-block gather moves few, large rows (row gathers on this backend
-#: cost per *row*, not per byte — see ops/compact.py docstring).
+#: Compaction granule of the packed fast path: 64 parents x 8 children —
+#: small enough that ~20-50% of blocks staying alive still cuts the fine
+#: sort 2-4x, big enough that the alive-block gather moves few, large rows.
 _BLOCK_ROWS = 512
 
 
@@ -119,15 +116,10 @@ def refine_step_blocked(
 
     1. **Block stage**: any-survivor reduction over ``_BLOCK_ROWS``-row
        blocks, a tiny stable key sort over the ~nb block ids, and a gather
-       of the first ``block_cap`` blocks — few large rows, which is fast on
-       this backend (row gathers cost per *row*, so gathering 1k 2KB blocks
-       beats gathering 60k 12-byte rows by ~50x).
+       of the first ``block_cap`` blocks — few large rows.
     2. **Fine stage**: the standard stable 4-column sort (keep-key, x, y, z)
        over the reduced ``block_cap * _BLOCK_ROWS`` rows — typically 4-8x
        fewer rows than 8N.
-
-    Measured on v5e at the 64^3 operating point: 7.1 ms (one-stage) ->
-    1.6 ms, with SDF evaluation itself only 0.36 ms of that.
 
     Returns ``(out, new_count, new_voxel_size, alive_blocks)``; ``new_count``
     and ``alive_blocks`` are true (unclipped) counts so the caller can detect
@@ -156,8 +148,7 @@ def refine_step_blocked(
         (bkey, jnp.arange(nb, dtype=jnp.int32)), num_keys=1, is_stable=True
     )
     sel = sel[:block_cap]
-    # child coordinates as separate planes — the (N, 8, 3) AoS form would
-    # run at 3/128 lane occupancy on TPU (child_lowers stays points-API)
+    # child coordinates as separate planes (child_lowers stays points-API)
     child_off = jnp.asarray(_CHILD_IJK, jnp.float32) * (
         jnp.asarray(voxel_size, jnp.float32) / 2.0
     )
@@ -173,14 +164,14 @@ def refine_step_blocked(
         key = jnp.where(mk, jnp.int32(0), jnp.int32(1))
         _, sx, sy, sz = jax.lax.sort((key, *cols), num_keys=1, is_stable=True)
     else:
-        # Packed fine sort (round-5 VERDICT item 2): on a dyadic lattice
+        # Packed fine sort: on a dyadic lattice
         # (bb_size with a short mantissa — field.py gates this) child lowers
         # are exactly ``origin + ijk * child_size`` with ijk < 2^11, so the
         # 4-column float sort collapses to a 2-column int32 sort (packed
         # (i,j) + dead flag as the key, k riding along; survivor ORDER is
         # irrelevant — callers treat the field as a set) and coordinates
-        # are reconstructed from the lattice afterwards. Sort cost scales
-        # with columns on this backend (CLAUDE.md data-movement hierarchy).
+        # are reconstructed from the lattice afterwards; sort cost scales
+        # with the number of columns.
         child = jnp.asarray(voxel_size, jnp.float32) / 2.0
         inv = 1.0 / child
 

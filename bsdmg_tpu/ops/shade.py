@@ -8,11 +8,13 @@ from __future__ import annotations
 
 from typing import Callable
 
+import math
+
 import jax
 import jax.numpy as jnp
 
 from bsdmg_tpu.config import MarchConfig
-from bsdmg_tpu.ops.trace import COLLISION, STEP_LIMIT, RayMarchHit
+from bsdmg_tpu.ops.trace import COLLISION, STEP_LIMIT, RayMarchHit, march_planes
 from bsdmg_tpu.sdf.normals import normal_fd4, normal_grad
 
 # Collision gradient colors (compute_render.cu:73-76), in linear [0,1].
@@ -34,14 +36,33 @@ _ACES_M2 = (
 )
 
 
+def aces_planes(r, g, b):
+    """ACES filmic tonemap on colour planes, clamped to [0, 1]
+    (color.cu:7-22). The 3x3 products are written out elementwise: a
+    float32 matrix product may run in reduced precision (TF32) on a GPU,
+    and these stay exact float32 everywhere."""
+
+    def mat(m, x, y, z):
+        return (
+            m[0][0] * x + m[0][1] * y + m[0][2] * z,
+            m[1][0] * x + m[1][1] * y + m[1][2] * z,
+            m[2][0] * x + m[2][1] * y + m[2][2] * z,
+        )
+
+    def curve(v):
+        a = v * (v + 0.0245786) - 0.000090537
+        bb = v * (0.983729 * v + 0.4329510) + 0.238081
+        return a / bb
+
+    vr, vg, vb = mat(_ACES_M1, r, g, b)
+    rr, gg, bb = mat(_ACES_M2, curve(vr), curve(vg), curve(vb))
+    clip = lambda v: jnp.clip(v, 0.0, 1.0)
+    return clip(rr), clip(gg), clip(bb)
+
+
 def aces_tonemap(rgb: jax.Array) -> jax.Array:
-    """ACES filmic tonemap, clamped to [0, 1] (color.cu:7-22)."""
-    m1 = jnp.asarray(_ACES_M1, rgb.dtype)
-    m2 = jnp.asarray(_ACES_M2, rgb.dtype)
-    v = rgb @ m1.T
-    a = v * (v + 0.0245786) - 0.000090537
-    b = v * (0.983729 * v + 0.4329510) + 0.238081
-    return jnp.clip((a / b) @ m2.T, 0.0, 1.0)
+    """ACES filmic tonemap of ``(..., 3)`` colours (color.cu:7-22)."""
+    return jnp.stack(aces_planes(rgb[..., 0], rgb[..., 1], rgb[..., 2]), -1)
 
 
 def shade_hits(
@@ -108,14 +129,9 @@ def shade_planes(nx, ny, nz, outcome):
     """Plane-form shading: Lambert two-color mix on collisions, white on
     step-limit, black otherwise, ACES tonemap. Returns ``(r, g, b)`` planes.
     The single source of truth for the reference's shading formula
-    (compute_render.cu:67-89) on component data — used by the Pallas shade
+    (compute_render.cu:67-89) on component data — used by the GPU render
     kernel, the SoA renderer and the differentiable SoA renderer. All
-    constants are Python scalars: Pallas kernels cannot capture traced
-    array constants."""
-    from bsdmg_tpu.ops.pallas.render_kernel import _aces_plane
-
-    import math
-
+    constants are Python scalars, so a Pallas kernel can inline them."""
     inv = 1.0 / math.sqrt(
         LIGHT_DIR[0] ** 2 + LIGHT_DIR[1] ** 2 + LIGHT_DIR[2] ** 2
     )
@@ -126,7 +142,7 @@ def shade_planes(nx, ny, nz, outcome):
     r = jnp.where(collided, COLOR_LOW[0] + t * (COLOR_HIGH[0] - COLOR_LOW[0]), white)
     g = jnp.where(collided, COLOR_LOW[1] + t * (COLOR_HIGH[1] - COLOR_LOW[1]), white)
     b = jnp.where(collided, COLOR_LOW[2] + t * (COLOR_HIGH[2] - COLOR_LOW[2]), white)
-    return _aces_plane(r, g, b)
+    return aces_planes(r, g, b)
 
 
 def render_image_c(
@@ -141,13 +157,10 @@ def render_image_c(
 ) -> jax.Array:
     """Component-form (SoA) trace + shade: same semantics as
     :func:`render_image` with the scene given as ``csdf_p(params, x, y, z)``
-    (``Scene.csdf``). Coordinate planes keep full TPU lane occupancy — the
-    fast path for sharded/multi-device rendering where the Pallas kernel's
-    param-baking is inconvenient. ``use_grad_normal`` selects forward-mode
+    (``Scene.csdf``) — the XLA renderer for any scene with a component form,
+    including grid-SDF mesh assets. ``use_grad_normal`` selects forward-mode
     analytic normals over the reference's fd4 stencil."""
-    # local import: render_kernel imports this module's color constants
-    from bsdmg_tpu.ops.pallas.render_kernel import _fd_normal, _march
-    from bsdmg_tpu.sdf.normals import normal_jvp_c
+    from bsdmg_tpu.sdf.normals import normal_fd4_c, normal_jvp_c
 
     batch = origins.shape[:-1]
     cone = jnp.broadcast_to(jnp.asarray(cone_radius, jnp.float32), batch)
@@ -155,16 +168,12 @@ def render_image_c(
     dx, dy, dz = directions[..., 0], directions[..., 1], directions[..., 2]
     f = lambda x, y, z: csdf_p(params, x, y, z)
 
-    depth, steps, outcome, _ = _march(
-        f, config, (ox, oy, oz), (dx, dy, dz), cone,
-        jnp.ones(batch, bool), jnp.zeros(batch, jnp.float32),
-        jnp.zeros(batch, jnp.int32), config.step_limit,
-    )
+    depth, _, outcome = march_planes(f, config, (ox, oy, oz), (dx, dy, dz), cone)
     px, py, pz = ox + depth * dx, oy + depth * dy, oz + depth * dz
     if use_grad_normal:
         nx, ny, nz = normal_jvp_c(f, px, py, pz)
     else:
-        nx, ny, nz = _fd_normal(f, px, py, pz, config.normal_epsilon)
+        nx, ny, nz = normal_fd4_c(f, px, py, pz, config.normal_epsilon)
 
     r, g, b = shade_planes(nx, ny, nz, outcome)
     return jnp.stack([r, g, b], axis=-1)

@@ -6,10 +6,9 @@ from bsdmg_tpu.parallel.mesh import (
     refine_field_sharded,
 )
 from bsdmg_tpu.parallel.sharding import (
-    train_step_fused,
     make_mesh,
     render_sharded,
-    render_sharded_pallas,
+    render_sharded_kernel,
     shard_rays,
     train_step,
 )
@@ -22,8 +21,7 @@ __all__ = [
     "make_mesh",
     "refine_field_sharded",
     "render_sharded",
-    "render_sharded_pallas",
+    "render_sharded_kernel",
     "shard_rays",
     "train_step",
-    "train_step_fused",
 ]

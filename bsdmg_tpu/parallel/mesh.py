@@ -12,7 +12,7 @@ Load balance: the initial dense grid is dealt round-robin (row ``d`` of the
 grid goes to shard ``d % n``) so every chip sees a representative slice of
 the surface — the voxel analogue of the sharded renderer's block striping.
 
-The reference is single-GPU (src/cuda/mod.rs:52); this is the TPU-native
+The reference is single-GPU (src/cuda/mod.rs:52); this is the multi-device
 scaling story for the mesh pipeline (SURVEY §2.4).
 """
 
@@ -96,8 +96,6 @@ def distribute_field(
 @partial(jax.jit, static_argnames=("mesh", "new_cap"))
 def _shrink_sharded_jit(mesh, new_cap, lowers):
     """Slice (or pad) every shard's local buffer to ``new_cap`` rows."""
-    from jax.experimental.shard_map import shard_map
-
     axes = tuple(mesh.axis_names)
 
     def local(lo):
@@ -107,16 +105,14 @@ def _shrink_sharded_jit(mesh, new_cap, lowers):
         pad = jnp.full((new_cap - cur, 3), 1e6, lo.dtype)
         return jnp.concatenate([lo, pad], axis=0)
 
-    return shard_map(
+    return jax.shard_map(
         local, mesh=mesh, in_specs=P(axes, None), out_specs=P(axes, None),
-        check_rep=False,
+        check_vma=False,
     )(lowers)
 
 
 @partial(jax.jit, static_argnames=("mesh", "sdf", "csdf", "block_cap"))
 def _refine_sharded_jit(mesh, sdf, csdf, block_cap, lowers, counts, voxel_size):
-    from jax.experimental.shard_map import shard_map
-
     axes = tuple(mesh.axis_names)
 
     def local(lo, cnt, size):
@@ -125,12 +121,12 @@ def _refine_sharded_jit(mesh, sdf, csdf, block_cap, lowers, counts, voxel_size):
         )
         return out, c[None], alive[None]
 
-    return shard_map(
+    return jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P(axes, None), P(axes), P()),
         out_specs=(P(axes, None), P(axes), P(axes)),
-        check_rep=False,
+        check_vma=False,
     )(lowers, counts, voxel_size)
 
 
@@ -203,8 +199,6 @@ def extract_sharded(
 
 @partial(jax.jit, static_argnames=("mesh", "sdf", "csdf", "config"))
 def _extract_sharded_jit(mesh, sdf, csdf, config, lowers, counts, voxel_size):
-    from jax.experimental.shard_map import shard_map
-
     axes = tuple(mesh.axis_names)
 
     def local(lo, cnt, size):
@@ -214,7 +208,7 @@ def _extract_sharded_jit(mesh, sdf, csdf, config, lowers, counts, voxel_size):
             jnp.reshape(jnp.asarray(soup.edge_overflow, jnp.int32), (1,)),
         )
 
-    return shard_map(
+    return jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P(axes, None), P(axes), P()),
@@ -224,7 +218,7 @@ def _extract_sharded_jit(mesh, sdf, csdf, config, lowers, counts, voxel_size):
             P(axes, None),
             P(axes),
         ),
-        check_rep=False,
+        check_vma=False,
     )(lowers, counts, voxel_size)
 
 

@@ -2,7 +2,7 @@
 
 Single code path for 1 host and N hosts: call :func:`initialize` once per
 process, then build a global mesh with :func:`bsdmg_tpu.parallel.make_mesh`
-— `jax.sharding` + jit handle cross-host ICI/DCN collectives transparently.
+— `jax.sharding` + jit handle cross-host collectives transparently.
 (The reference has no multi-device story at all; src/cuda/mod.rs:52 pins
 device 0.)
 """
@@ -19,7 +19,7 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
                process_id: int | None = None) -> None:
     """Initialize jax.distributed when running multi-host.
 
-    No-ops in single-process mode (local TPU chips or CPU testing). Reads the
+    No-ops in single-process mode (local devices or CPU testing). Reads the
     standard env vars if args are omitted.
     """
     coordinator = coordinator or os.environ.get("BSDMG_COORDINATOR")
@@ -42,7 +42,7 @@ def shard_voxels(lowers: jax.Array, mesh: Mesh, axis: str = "dp"):
 
     Refinement and marching cubes are per-voxel independent, so a block
     sharding needs no communication; the prefix-sum compaction runs globally
-    under jit (XLA turns the cumsum into a cross-device scan over ICI).
+    under jit (XLA turns the cumsum into a cross-device scan).
     """
     sharding = NamedSharding(mesh, P(axis))
     n = lowers.shape[0]

@@ -2,14 +2,14 @@
 
 The reference is single-GPU with zero inter-device communication
 (``CudaDevice::new(0)``, src/cuda/mod.rs:52; PCIe memcpys only). The
-TPU-native scaling story (SURVEY §2.4, §7):
+scaling story here (SURVEY §2.4, §7):
 
 * **Rays** shard over the image row axis ("dp") and column axis ("sp") of a
   2-D device mesh — the structural analogue of data/sequence parallelism for
   this workload. SDF parameters are a tiny pytree, replicated.
 * **Voxel blocks** shard over the batch axis for refinement/extraction.
 * **Gradients** of the replicated params are partial sums per shard; XLA
-  inserts the ``psum`` over ICI automatically when we jit with replicated
+  inserts the all-reduce automatically when we jit with replicated
   out-shardings (overlap with the backward pass is XLA's job — we keep the
   program a single fused jit).
 * Multi-host: same code path — ``jax.distributed.initialize()`` plus a global
@@ -127,11 +127,9 @@ def render_sharded(
 
 
 # module-level jitted bodies: cached per (scene/csdf, config, normals,
-# sharding) across calls — defining the jit inside render_sharded made
-# every frame a fresh wrapper that RECOMPILED the sharded render (the same
-# class of bug the round-2 advisor found in train_step; caught again by
-# bench.benchmark_scaling_overhead measuring a 26x "overhead" that was
-# compile time)
+# sharding) across calls — a jit defined inside render_sharded would make
+# every frame a fresh wrapper that recompiles the sharded render
+# (tests/test_parallel.py::test_scaling_overhead_proxy counts compilations)
 @partial(jax.jit, static_argnums=(0, 1, 2, 3))
 def _render_sharded_points_jit(
     scene_fn, config, use_grad_normal, out_sharding, p, o, d, c
@@ -162,22 +160,12 @@ def _train_step_jit(
     scene_fn, opt, p, opt_st, tgt, o, d, c, component_fn, mesh, config
 ):
     """Module-level jitted train step: cached per (scene, optimizer, csdf,
-    mesh, config) across every optimizer iteration — defining the jit inside
-    ``train_step`` made each call a fresh wrapper that retraced the whole
-    sharded graph (advisor finding, round 2)."""
+    mesh, config) across every optimizer iteration — a jit defined inside
+    ``train_step`` would retrace the whole sharded graph on every call."""
     replicated = NamedSharding(mesh, P())
 
     def loss_fn(pp):
-        # use_pallas=False: this step runs under plain jit with dp/sp-sharded
-        # rays, and GSPMD has no partitioning rule for a pallas_call — the
-        # auto-selected Pallas diff path would gather/replicate the rays per
-        # device (or fail to compile) on a real multi-chip mesh. The XLA SoA
-        # path shards cleanly; the fused Pallas training step is the
-        # shard_map-wrapped train_step_fused below.
-        img = render_image_diff(
-            scene_fn, pp, o, d, c, config, csdf=component_fn,
-            use_pallas=False,
-        )
+        img = render_image_diff(scene_fn, pp, o, d, c, config, csdf=component_fn)
         return jnp.mean((img - tgt) ** 2)
 
     loss, grads = jax.value_and_grad(loss_fn)(p)
@@ -204,7 +192,7 @@ def train_step(
     csdf=None,
 ):
     """One inverse-rendering step: sharded differentiable render, L2 loss,
-    gradient all-reduce over ICI (XLA-inserted), replicated optimizer update.
+    gradient all-reduce (XLA-inserted), replicated optimizer update.
 
     Returns ``(params, opt_state, loss)``. Jit-cached per
     (scene, optimizer, csdf, mesh, config).
@@ -217,233 +205,46 @@ def train_step(
 
 @partial(
     jax.jit,
-    static_argnames=(
-        "csdf", "mesh", "config", "bb", "interpret", "h", "w", "split",
-        "two_phase", "phase_a_steps",
-    ),
+    static_argnames=("csdf", "mesh", "config", "bb", "split", "interpret"),
 )
-def _render_sharded_pallas_jit(
-    csdf, origins, directions, cone_full, mesh, config, bb, interpret, h, w,
-    split=None, two_phase=False, phase_a_steps=48,
-):
-    from jax.experimental.shard_map import shard_map
+def _render_sharded_kernel_jit(csdf, origins, directions, cone, mesh, config,
+                               bb, split, interpret=False):
+    from bsdmg_tpu.ops.pallas.render_triton import TILE_H, render_image_triton
 
-    from bsdmg_tpu.ops.pallas.render_kernel import (
-        _SWIZZLED_BLOCK_ROWS,
-        TILE_S,
-        _unswizzle,
-        render_swizzled,
-        swizzled_ray_planes,
-    )
-
+    h, w = origins.shape[:2]
     n = mesh.devices.size
-    granule = n * _SWIZZLED_BLOCK_ROWS
-    o_s, d_s, c_s, (hp, wp, m, mp) = swizzled_ray_planes(
-        origins, directions, cone_full, h, w, row_granule=granule
-    )
-    nblk = mp // TILE_S  # swizzle units: one 32x32 spatial block = 8 rows
+    band = n * TILE_H
+    hp = -(-h // band) * band
+    cone = jnp.broadcast_to(jnp.asarray(cone, jnp.float32), (h, w))
+    # pad rows with rays that start far outside the scene (instant sky)
+    fill = lambda v: jnp.broadcast_to(jnp.asarray(v, jnp.float32), (hp - h, w, 3))
+    origins = jnp.concatenate([origins, fill((1e5, 1e5, 1e5))])
+    directions = jnp.concatenate([directions, fill((1.0, 0.0, 0.0))])
+    cone = jnp.concatenate([cone, jnp.zeros((hp - h, w), jnp.float32)])
 
     def stripe(x):
-        # deal blocks round-robin across the n shards: shard i gets blocks
-        # i, i+n, i+2n, ... (a representative mix of sky and object blocks)
-        t = x.reshape(nblk // n, n, TILE_S, *x.shape[1:])
+        # deal TILE_H-row bands round-robin: shard i gets bands i, i+n, ...
+        # (a representative mix of sky and object rows on every card)
+        t = x.reshape(hp // band, n, TILE_H, *x.shape[1:])
         return t.swapaxes(0, 1).reshape(x.shape)
 
     def unstripe(x):
-        t = x.reshape(n, nblk // n, TILE_S, *x.shape[1:])
+        t = x.reshape(n, hp // band, TILE_H, *x.shape[1:])
         return t.swapaxes(0, 1).reshape(x.shape)
-
-    o_s, d_s, c_s = stripe(o_s), stripe(d_s), stripe(c_s)
 
     axes = tuple(mesh.axis_names)  # flatten every mesh axis onto the rows
-    spec3 = P(axes, None, None)
-    spec2 = P(axes, None)
-
-    @partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(spec3, spec3, spec2),
-        out_specs=(spec2,) * 3,
-        check_rep=False,
+    rows3, rows2 = P(axes, None, None), P(axes, None)
+    local = jax.shard_map(
+        lambda o, d, c: render_image_triton(csdf, o, d, c, config, bb=bb,
+                                            split=split, interpret=interpret),
+        mesh=mesh, in_specs=(rows3, rows3, rows2), out_specs=rows3,
+        check_vma=False,
     )
-    def local(o, d, c):
-        # two_phase="block" retires finished 32x32 blocks per shard after
-        # phase_a_steps (tail_cap=None: the per-shard default); row-mode
-        # two-phase keeps the legacy 32/1024 knobs
-        return render_swizzled(
-            csdf, o, d, c, config, bb, bb is not None,
-            two_phase, phase_a_steps, None if two_phase == "block" else 1024,
-            interpret, config.relaxation, split,
-        )
-
-    r, g, b = local(o_s, d_s, c_s)
-    r, g, b = (_unswizzle(unstripe(x)[:m], hp, wp) for x in (r, g, b))
-    return jnp.stack([r[:h, :w], g[:h, :w], b[:h, :w]], axis=-1)
+    img = local(stripe(origins), stripe(directions), stripe(cone))
+    return unstripe(img)[:h]
 
 
-def render_grid_sharded(
-    grid,
-    origins: jax.Array,
-    directions: jax.Array,
-    cone: jax.Array,
-    mesh: Mesh,
-    config: MarchConfig = MarchConfig(),
-    *,
-    levels=None,
-    interpret: bool = False,
-):
-    """Multi-device mesh-asset rendering: the gather-free contraction grid
-    tracer (ops/pallas/grid_kernel.py) under ``shard_map``.
-
-    Same dealing strategy as :func:`render_sharded_pallas`: the swizzled
-    32x32 block rows are striped round-robin across every chip, so each
-    shard gets a representative mix of sky and surface blocks. Everything
-    inside a shard is local — the mip-ladder Pallas kernels, the
-    shrinking-cap compacted fine finish, and the compacted normals all
-    operate on the shard's own rays; the mip tables and fine grid replicate
-    (they are closed-over constants), so the only cross-device traffic is
-    the initial reshard. Per-shard finish caps scale with the shard's ray
-    count automatically (they are fractions).
-
-    Takes the full unsharded ray image (scanline order); returns the full
-    linear-RGB image.
-    """
-    h, w = origins.shape[:2]
-    cone_full = jnp.broadcast_to(
-        jnp.asarray(cone, jnp.float32), origins.shape[:-1]
-    )
-    from jax.experimental.shard_map import shard_map
-
-    from bsdmg_tpu.ops.pallas.grid_kernel import (
-        make_contraction_levels, shade_grid_planes_contraction,
-    )
-    from bsdmg_tpu.ops.pallas.render_kernel import (
-        _SWIZZLED_BLOCK_ROWS, TILE_S, _unswizzle, swizzled_ray_planes,
-    )
-
-    if levels is None:
-        levels = make_contraction_levels(grid)
-    n = mesh.devices.size
-    granule = n * _SWIZZLED_BLOCK_ROWS
-    o_s, d_s, c_s, (hp, wp, m, mp) = swizzled_ray_planes(
-        origins, directions, cone_full, h, w, row_granule=granule
-    )
-    nblk = mp // TILE_S
-
-    def stripe(x):
-        t = x.reshape(nblk // n, n, TILE_S, *x.shape[1:])
-        return t.swapaxes(0, 1).reshape(x.shape)
-
-    def unstripe(x):
-        t = x.reshape(n, nblk // n, TILE_S, *x.shape[1:])
-        return t.swapaxes(0, 1).reshape(x.shape)
-
-    o_s, d_s, c_s = stripe(o_s), stripe(d_s), stripe(c_s)
-    axes = tuple(mesh.axis_names)
-    spec3 = P(axes, None, None)
-    spec2 = P(axes, None)
-
-    @partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(spec3, spec3, spec2),
-        out_specs=(spec2,) * 3,
-        check_rep=False,
-    )
-    def local(o, d, c):
-        return shade_grid_planes_contraction(
-            grid, o, d, c, config, levels, interpret
-        )
-
-    r, g, b = local(o_s, d_s, c_s)
-    r, g, b = (_unswizzle(unstripe(x)[:m], hp, wp) for x in (r, g, b))
-    return jnp.stack([r[:h, :w], g[:h, :w], b[:h, :w]], axis=-1)
-
-
-def train_step_fused(
-    csdf_p,
-    params: Any,
-    opt_state: Any,
-    optimizer,
-    target: jax.Array,
-    origins: jax.Array,
-    directions: jax.Array,
-    cone: jax.Array,
-    mesh: Mesh,
-    config: MarchConfig = MarchConfig(),
-    *,
-    bb: tuple | None = None,
-    split=None,
-    interpret: bool = False,
-):
-    """One inverse-rendering step, fully fused per chip.
-
-    Each chip runs the single-kernel loss+grad
-    (``ops.pallas.diff_kernel.render_loss_grad_pallas`` — march + IFT +
-    shade + loss + in-kernel reverse-mode) on its ray shard; the per-shard
-    gradient partial sums ``psum`` over ICI into the exact global-mean
-    gradient (shards pass the global pixel count as the mean denominator),
-    then a replicated optax update. This is the maximum-fusion training
-    configuration: two collective ops per step, everything else in-kernel.
-
-    Shard rays + target identically beforehand (e.g. ``shard_rays`` with
-    the same permutation applied to ``target`` — the loss is
-    permutation-invariant, so no unpermute is needed).
-
-    Returns ``(params, opt_state, loss)``.
-    """
-    h, w = origins.shape[:2]
-    cone_full = jnp.broadcast_to(jnp.asarray(cone, jnp.float32), (h, w))
-    return _train_step_fused_jit(
-        csdf_p, optimizer, params, opt_state, target, origins, directions,
-        cone_full, mesh, config, bb, split, interpret, h, w,
-    )
-
-
-@partial(
-    jax.jit,
-    static_argnums=(0, 1) + tuple(range(8, 15)),
-    donate_argnums=(2, 3),
-)
-def _train_step_fused_jit(
-    cfn, opt, p, opt_st, tgt, o, d, c, mesh, config, bb, split, interpret,
-    h, w,
-):
-    """Module-level jitted fused step (see ``_train_step_jit`` for why)."""
-    from jax.experimental.shard_map import shard_map
-
-    from bsdmg_tpu.ops.pallas.diff_kernel import render_loss_grad_pallas
-
-    axes = tuple(mesh.axis_names)
-    ray = P(axes[0], axes[1] if len(axes) > 1 else None, None)
-    plane = P(axes[0], axes[1] if len(axes) > 1 else None)
-
-    @partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(P(), ray, ray, plane, ray),
-        out_specs=(P(), P()),
-        check_rep=False,
-    )
-    def local(p_, o_, d_, c_, t_):
-        loss, grads = render_loss_grad_pallas(
-            cfn, p_, t_, o_, d_, c_, config,
-            bb=bb, split=split, interpret=interpret,
-            total_pixels=h * w,
-        )
-        loss = jax.lax.psum(loss, axes)
-        grads = jax.lax.psum(grads, axes)
-        return loss, grads
-
-    loss, grads = local(p, o, d, c, tgt)
-    updates, opt_st = opt.update(grads, opt_st, p)
-    import optax
-
-    p = optax.apply_updates(p, updates)
-    return p, opt_st, loss
-
-
-def render_sharded_pallas(
+def render_sharded_kernel(
     csdf,
     origins: jax.Array,
     directions: jax.Array,
@@ -454,36 +255,17 @@ def render_sharded_pallas(
     bb: tuple | None = None,
     split=None,
     interpret: bool = False,
-    two_phase: bool | str = False,
-    phase_a_steps: int = 48,
 ):
-    """Multi-device fused-kernel rendering: ``shard_map`` over the mesh with
-    the single-chip Pallas render kernel inside.
+    """Multi-device render with the GPU tile kernel on every device, under
+    ``shard_map``: rows of 8 pixels are dealt round-robin across all devices
+    (both mesh axes flattened), each device renders its rows, and the image
+    is gathered back. The scene is a param-baked component SDF
+    (``compile_scene_csdf``); SDF evaluation is embarrassingly parallel, so
+    the only traffic is the initial deal and the final gather.
 
-    ``two_phase="block"`` enables per-shard block-granule ray retirement
-    (same semantics and pixel-exactness as the single-chip kernel; each
-    shard compacts its own long-tail blocks, no cross-shard traffic).
-
-    The image is swizzled into its (M, 128) 32x32-block layout *globally*,
-    then the block rows are dealt round-robin across all chips (both mesh
-    axes flattened) — so every shard is a full-occupancy multiple of the
-    kernel's 32-row Pallas block (no per-shard swizzle padding: at 1080p the
-    old per-chip row-shard padded 135-row shards to 160 swizzle-granule rows,
-    a 19% lane tax) and gets a representative mix of cheap sky blocks and
-    expensive object blocks (the multi-chip analogue of the reference's warp
-    swizzle, common.cu:186-215). The scene is a compiled component SDF
-    (params baked — forward serving); SDF evaluation is embarrassingly
-    parallel, so the only cross-device traffic is the initial reshard.
-
-    Takes the *full* unsharded ray image (scanline order); returns the full
-    image. Load balancing is internal — do not pre-permute with
-    ``shard_rays``.
-    """
-    h, w = origins.shape[:2]
-    cone_full = jnp.broadcast_to(
-        jnp.asarray(cone, jnp.float32), origins.shape[:-1]
-    )
-    return _render_sharded_pallas_jit(
-        csdf, origins, directions, cone_full, mesh, config, bb, interpret,
-        h, w, split, two_phase, phase_a_steps,
+    Takes the full unsharded ray image (scanline order) and returns the full
+    image; do not pre-permute with ``shard_rays``. ``interpret`` runs the
+    kernel in the Pallas interpreter (tests on a machine without a GPU)."""
+    return _render_sharded_kernel_jit(
+        csdf, origins, directions, cone, mesh, config, bb, split, interpret
     )

@@ -3,7 +3,7 @@
 Two normal paths:
 
 * :func:`normal_grad` — idiomatic JAX: the analytic gradient of the SDF via
-  ``jax.grad``, which XLA fuses with the surrounding program. Preferred on TPU.
+  ``jax.grad``, which XLA fuses with the surrounding program.
 * :func:`normal_fd4` — the reference's 4th-order central difference with
   ``eps=1e-3`` (cuda/includes/signed_distance.cu:179-202), kept bit-compatible
   for golden-image parity.
@@ -53,8 +53,10 @@ def normal_fd4(sdf: SdfFn, p: jax.Array, eps: float = 1e-3) -> jax.Array:
     offsets = (taps[:, None, None] * eye[None, :, :]).reshape(12, 3) * eps
     # (..., 12, 3)
     samples = sdf(p[..., None, :] + offsets)  # (..., 12)
-    weights = jnp.asarray([-1.0, 8.0, -8.0, 1.0], dtype=p.dtype)
-    grads = jnp.einsum("...ta,t->...a", samples.reshape(*samples.shape[:-1], 4, 3), weights)
+    s = samples.reshape(*samples.shape[:-1], 4, 3)
+    # elementwise, not a contraction: a float32 einsum may run in TF32 on a
+    # GPU, which would lose the stencil's cancellation
+    grads = -s[..., 0, :] + 8.0 * s[..., 1, :] - 8.0 * s[..., 2, :] + s[..., 3, :]
     return _normalize(grads)
 
 
@@ -88,7 +90,7 @@ def closest_surface_point(
     """Project points onto the zero isosurface: ``g <- g - sd(g) * n(g)``.
 
     Reference: signed_distance.cu:227-240 (up to 10,000 data-dependent
-    iterations, tol 1e-5). TPU-native version: a static ``fori_loop`` with a
+    iterations, tol 1e-5). Here a bounded ``while_loop`` with a
     per-point convergence mask — Newton converges in a handful of steps on a
     well-behaved SDF, verified by surface-distance assertions in tests.
     """
@@ -119,11 +121,10 @@ def closest_surface_point(
 # ---------------------------------------------------------------------------
 # Component-form (SoA) variants
 #
-# TPU lanes are wasted by a trailing length-3 vector axis: an (N, 3) pointwise
-# SDF runs at 3/128 lane occupancy. These variants take and return coordinate
-# *planes* (x, y, z of any equal shape) and evaluate a component SDF
-# ``csdf(x, y, z) -> d`` — measured ~30x faster on v5e for the same math.
-# Wrap an (N, 3) SDF with :func:`as_component` when no native csdf exists.
+# These variants take and return coordinate *planes* (x, y, z of any equal
+# shape) and evaluate a component SDF ``csdf(x, y, z) -> d``, so no array
+# carries a trailing length-3 axis. Wrap an (N, 3) SDF with
+# :func:`as_component` when no native csdf exists.
 # ---------------------------------------------------------------------------
 
 

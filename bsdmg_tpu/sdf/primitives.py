@@ -1,9 +1,9 @@
 """Analytic SDF primitives and CSG combinators.
 
 Capability parity with the reference's device-side SDF library
-(``cuda/includes/signed_distance.cu``), written TPU-first: every primitive is
-natively batched over leading dims of ``p`` (shape ``(..., 3)``) so the whole
-scene evaluates as fused VPU element-wise code with no scalar loops.
+(``cuda/includes/signed_distance.cu``): every primitive is natively batched
+over leading dims of ``p`` (shape ``(..., 3)``) so the whole scene evaluates
+as fused element-wise code with no scalar loops.
 
 Reference citations are ``file:line`` into ``/root/reference``.
 """
@@ -299,8 +299,7 @@ def ray_distance_to_bb(origin: jax.Array, direction: jax.Array, bb_min, bb_max) 
 #
 # These mirror the point-API primitives above but take coordinate planes
 # (x, y, z) and keep parameters as traced JAX scalars/vectors, so they are
-# differentiable w.r.t. params AND lane-efficient on TPU (a trailing
-# length-3 axis runs at 3/128 lane occupancy; planes run at full occupancy).
+# differentiable w.r.t. params and free of a trailing length-3 axis.
 # Used by the differentiable render path (bsdmg_tpu/grad) and any caller
 # that wants gradients through a fast SDF.
 # ---------------------------------------------------------------------------
@@ -309,9 +308,7 @@ def ray_distance_to_bb(origin: jax.Array, direction: jax.Array, bb_min, bb_max) 
 def _vec3(v):
     """A 3-vector parameter as a tuple of scalars.
 
-    Accepts a (3,) array, a scalar, or a tuple/list of (traced) scalars —
-    the last form is what the SMEM-parameter Pallas kernels pass (Mosaic
-    kernels cannot hold 1-D traced vectors, but scalars are fine)."""
+    Accepts a (3,) array, a scalar, or a tuple/list of (traced) scalars."""
     if isinstance(v, (tuple, list)):
         if len(v) == 1:
             return (v[0], v[0], v[0])
@@ -401,26 +398,16 @@ def sd_box_skeleton_c(x, y, z, center, size, line_width, *, reference_compat=Tru
     return jnp.sqrt(best) - line_width
 
 
-def sd_mandelbulb_c(x, y, z, time=0.0, *, arccos=None, arctan2=None):
+def sd_mandelbulb_c(x, y, z, time=0.0):
     """Component form of :func:`sd_mandelbulb` (signed_distance.cu:29-53) —
-    coordinate planes in, distance plane out; full TPU lane occupancy.
-
-    ``arccos``/``arctan2`` are pluggable because Pallas TPU has no native
-    inverse trig — the render-kernel compiler passes the polynomial versions
-    from ``bsdmg_tpu.ops.pallas.mathx``; the default (XLA-native) is exact.
-    """
-    arccos = jnp.arccos if arccos is None else arccos
-    arctan2 = jnp.arctan2 if arctan2 is None else arctan2
-    # keep the exponent a static Python float when time is static: Mosaic
-    # lowers pow-by-constant but not pow with a traced exponent
+    coordinate planes in, distance plane out."""
+    # a static time keeps the exponent a Python float, which a kernel inlines
     if isinstance(time, (int, float)):
         power = float(_MANDELBULB_POWER * (1.0 + time * 0.001))
     else:
         power = _MANDELBULB_POWER * (1.0 + jnp.asarray(time, jnp.float32) * 0.001)
 
     def body(_, carry):
-        # the active mask is carried as int32: Mosaic's loop lowering
-        # rejects a recomputed bool plane as a loop carry
         zx, zy, zz, dr, r, active_i = carry
         active = active_i > 0
         r_new = jnp.sqrt(zx * zx + zy * zy + zz * zz)
@@ -428,8 +415,8 @@ def sd_mandelbulb_c(x, y, z, time=0.0, *, arccos=None, arctan2=None):
         cont = active & (r_new <= 2.0)
 
         safe_r = jnp.maximum(r_new, _SAFE_EPS)
-        theta = arccos(jnp.clip(zz / safe_r, -1.0, 1.0)) * power
-        phi = arctan2(zy, zx) * power
+        theta = jnp.arccos(jnp.clip(zz / safe_r, -1.0, 1.0)) * power
+        phi = jnp.arctan2(zy, zx) * power
         zr = safe_r**power
         dr_next = safe_r ** (power - 1.0) * power * dr + 1.0
 

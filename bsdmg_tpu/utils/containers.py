@@ -1,9 +1,9 @@
 """Fixed-capacity device containers: bitsets and bounded arrays.
 
-TPU-native equivalents of the reference's device utilities
+JAX equivalents of the reference's device utilities
 (cuda/includes/utils.cu:32-78): ``BitSet<N>`` (with a packed 32-bit word
 backing, :34-58) and the fixed ``Array<T, N>`` / ``DynamicArray<T, N>``
-(:70-78). On TPU these become immutable pytrees over dense arrays — the
+(:70-78). Here these become immutable pytrees over dense arrays — the
 same fixed-capacity + live-count pattern the compaction ops use
 (bsdmg_tpu/ops/compact.py), exposed as reusable containers. The reference
 never calls its versions from a kernel; ours are used by tests and available

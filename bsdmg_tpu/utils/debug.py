@@ -1,7 +1,7 @@
 """Debug-mode checks: NaN trapping and checkified SDF evaluation.
 
 The reference's only sanitizer is a compile-time ``-Xptxas -warn-double-usage``
-(build.rs:116,120) and it has no runtime asserts. The TPU build leans on
+(build.rs:116,120) and it has no runtime asserts. This build leans on
 JAX's functional purity plus the two opt-in mechanisms here (SURVEY §5):
 
 * :func:`debug_mode` — context manager flipping ``jax_debug_nans`` (every op

@@ -63,12 +63,31 @@ class TestFitFlags:
 
 
 class TestBenchFlags:
-    def test_two_phase_and_unroll(self):
+    def test_roofline_and_trace(self):
         a = build_parser().parse_args(
-            ["bench", "--which", "render", "--two-phase", "block", "--unroll", "4"]
+            ["bench", "--which", "render", "--roofline", "--trace", "t"]
         )
-        assert (a.two_phase, a.unroll) == ("block", 4)
+        assert (a.which, a.roofline, a.trace) == ("render", True, "t")
 
     def test_defaults(self):
         a = build_parser().parse_args(["bench", "--which", "render"])
-        assert (a.two_phase, a.unroll) == (None, 1)
+        assert (a.roofline, a.trace, a.width, a.height) == (False, None, 1920, 1080)
+
+
+class TestChipSmoke:
+    def test_exits_nonzero_without_gpu(self):
+        """chip_smoke.py refuses to run without a GPU: a non-zero exit that
+        names the missing GPU, and no JSON result line."""
+        import os
+        import subprocess
+        import sys
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
+        r = subprocess.run(
+            [sys.executable, os.path.join(root, "chip_smoke.py")],
+            capture_output=True, text=True, env=env, timeout=300, cwd=root,
+        )
+        assert r.returncode != 0
+        assert "no GPU found" in r.stderr + r.stdout
+        assert '"ok"' not in r.stdout

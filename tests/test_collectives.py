@@ -6,16 +6,14 @@ is made auditable without multi-chip hardware by compiling the SPMD
 programs on the 8-device virtual CPU mesh and counting collective ops in
 the partitioned HLO:
 
-* ``render_sharded_pallas`` — ZERO collectives in the march: ray tracing is
-  embarrassingly parallel. The only collectives are exactly 3 all-gathers,
-  the final frame assembly (one per color plane) when the full image is
-  returned to the caller.
-* ``train_step_fused`` — exactly ONE all-reduce: the loss psum and the
-  gradient-pytree psum fuse into a single tuple all-reduce over both mesh
-  axes. Everything else is in-kernel.
+* ``render_sharded_kernel`` (the tile kernel under ``shard_map``, interpret
+  mode here) and ``render_sharded`` (the XLA march under GSPMD) — ZERO
+  reductions in the march: ray tracing is embarrassingly parallel. The
+  kernel path's only collectives assemble the returned frame.
 * ``train_step`` (XLA autodiff path) — only all-reduces (the XLA-inserted
   gradient/loss reductions; the exact count is a partitioner choice that
-  has been observed at 2-4), never a gather/scatter/permute collective.
+  has been observed at 2-4), never a gather/scatter/permute collective, on
+  every mesh shape.
 
 If someone adds a hot-path collective (a resharding ``with_sharding_
 constraint``, an accidental global reduction inside the march), these
@@ -38,8 +36,8 @@ from bsdmg_tpu.ops.pallas import compile_scene_csdf
 from bsdmg_tpu.ops.pallas.csdf import scene_bounds
 from bsdmg_tpu.parallel import make_mesh, shard_rays
 from bsdmg_tpu.parallel.sharding import (
-    _render_sharded_pallas_jit,
-    _train_step_fused_jit,
+    _render_sharded_c_jit,
+    _render_sharded_kernel_jit,
     _train_step_jit,
 )
 
@@ -75,44 +73,59 @@ class TestRenderHotPathHasNoCollectives:
         rep = NamedSharding(mesh, P())
         o, d, c = (jax.device_put(x, rep) for x in (origins, dirs, cone_full))
         txt = (
-            _render_sharded_pallas_jit.lower(
+            _render_sharded_kernel_jit.lower(
                 compile_scene_csdf(scene), o, d, c, mesh, MarchConfig(),
-                scene_bounds(scene), True, h, w, None,
+                scene_bounds(scene), None, True,
             )
             .compile()
             .as_text()
         )
         counts = _collective_counts(txt)
-        # the 3 all-gathers are the output frame assembly (r, g, b planes);
-        # the march itself communicates nothing
-        assert counts == {"all-gather": 3}, counts
+        # the march itself communicates nothing (no reduction of any kind);
+        # the gather and permutes assemble the dealt row bands into the
+        # returned frame
+        assert counts == {"all-gather": 1, "collective-permute": 2}, counts
+
+    def test_sharded_xla_render(self, setup):
+        mesh, scene, origins, dirs, cone, h, w = setup
+        o, d, c, _ = shard_rays(origins, dirs, cone, mesh, interleave=False)
+        out = NamedSharding(mesh, P("dp", "sp"))
+        txt = (
+            _render_sharded_c_jit.lower(
+                scene.csdf, MarchConfig(), False, out, scene.params, o, d, c,
+            )
+            .compile()
+            .as_text()
+        )
+        # the image stays sharded where it was rendered: nothing to gather,
+        # and the while loop's any-active test reduces across devices
+        counts = _collective_counts(txt)
+        assert set(counts) <= {"all-reduce"}, counts
 
 
 class TestTrainStepCollectiveBudget:
-    def test_fused_step_is_one_tuple_all_reduce(self, setup):
-        mesh, scene, origins, dirs, cone, h, w = setup
-        params = {
-            k: jnp.array(v)
-            for k, v in scene.params.items()
-            if k not in ("object_center", "object_rotation")
-        }
+    @pytest.mark.parametrize("shape", [(8, 1), (2, 4)])
+    def test_train_step_collectives_per_mesh(self, setup, shape):
+        _, scene, origins, dirs, cone, h, w = setup
+        mesh = make_mesh(shape=shape)
+        params = {k: jnp.array(v) for k, v in scene.params.items()}
         opt = optax.adam(1e-3)
         opt_state = opt.init(params)
         o, d, c, _ = shard_rays(origins, dirs, cone, mesh, interleave=False)
-        cfull = jnp.broadcast_to(jnp.asarray(c, jnp.float32), (h, w))
         target = jax.device_put(
             jnp.zeros((h, w, 3), jnp.float32), NamedSharding(mesh, P("dp", "sp"))
         )
         txt = (
-            _train_step_fused_jit.lower(
-                scene.csdf, opt, params, opt_state, target, o, d, cfull,
-                mesh, MarchConfig(), None, None, True, h, w,
+            _train_step_jit.lower(
+                scene.sdf, opt, params, opt_state, target, o, d, c,
+                scene.csdf, mesh, MarchConfig(),
             )
             .compile()
             .as_text()
         )
         counts = _collective_counts(txt)
-        assert counts == {"all-reduce": 1}, counts
+        assert set(counts) == {"all-reduce"}, counts
+        assert counts["all-reduce"] <= 4, counts
 
     def test_xla_step_all_reduces_only(self, setup):
         mesh, scene, origins, dirs, cone, h, w = setup

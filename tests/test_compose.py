@@ -313,27 +313,24 @@ class TestRenderIntegration:
         )
 
     def test_pallas_trace_matches_pure(self):
+        """The Triton tile kernel (interpret mode) renders a composed scene
+        like the XLA component-form march."""
         from bsdmg_tpu.cam import generate_rays, look_at
         from bsdmg_tpu.ops.pallas.csdf import compile_scene_csdf, scene_bounds
-        from bsdmg_tpu.ops.pallas.render_kernel import trace_pallas
-        from bsdmg_tpu.ops.trace import COLLISION, sphere_trace
+        from bsdmg_tpu.ops.pallas.render_triton import render_image_triton
+        from bsdmg_tpu.ops.shade import render_image_c
 
         scene = compose_scene(SNOWMAN)
         csdf = compile_scene_csdf(scene)
         cam = look_at((4.0, 2.0, -4.0), fov=np.pi / 4)
         o, d, c = generate_rays(cam, (64, 32), (1920.0, 1080.0))
-        ref = sphere_trace(scene.bind(), o, d, c)
-        depth, _, outcome = trace_pallas(
-            csdf, o, d, c, bb=scene_bounds(scene), interpret=True
+        ref = np.asarray(render_image_c(scene.csdf, scene.params, o, d, c))
+        img = np.asarray(
+            render_image_triton(csdf, o, d, c, bb=scene_bounds(scene),
+                                interpret=True)
         )
-        np.testing.assert_array_equal(
-            np.asarray(ref.outcome), np.asarray(outcome)
-        )
-        hit = np.asarray(ref.outcome) == COLLISION
-        assert hit.any()
-        np.testing.assert_allclose(
-            np.asarray(ref.depth)[hit], np.asarray(depth)[hit], atol=1e-5
-        )
+        assert (ref.max(-1) > 0).any()
+        np.testing.assert_allclose(img, ref, atol=2e-4)
 
     def test_cli_json_scene(self, tmp_path):
         from bsdmg_tpu.cli import _get_scene
@@ -386,10 +383,10 @@ class TestRenderIntegration:
             params, state, loss = step(params, state)
         assert abs(float(params["n0_radius"]) - 1.0) < 0.02
 
-    def test_fused_loss_grad_kernel_handles_composed_params(self):
-        """The SMEM-param fused loss+grad kernel (interpret mode) accepts a
-        composed scene's pytree (scalars + (3,)/(4,) vectors) and matches
-        jax.value_and_grad of the XLA diff render."""
+    def test_loss_and_grad_handles_composed_params(self):
+        """The fit's training step accepts a composed scene's pytree
+        (scalars + (3,)/(4,) vectors) and matches jax.value_and_grad of the
+        points-path diff render."""
         import jax
 
         from bsdmg_tpu.cam import generate_rays, look_at
@@ -401,20 +398,17 @@ class TestRenderIntegration:
         target = jnp.zeros(o.shape[:-1] + (3,), jnp.float32)
 
         def oracle(p):
-            img = render_image_diff(
-                scene.sdf, p, o, d, c, csdf=scene.csdf, use_pallas=False
-            )
+            img = render_image_diff(scene.sdf, p, o, d, c)
             return jnp.mean((img - target) ** 2)
 
         ref_loss, ref_g = jax.value_and_grad(oracle)(scene.params)
         loss, g = render_loss_and_grad(
-            scene.sdf, scene.params, target, o, d, c,
-            csdf=scene.csdf, use_fused=True, interpret=True,
+            scene.sdf, scene.params, target, o, d, c, csdf=scene.csdf,
         )
-        np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-5)
+        np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-4)
         for k in ref_g:
             np.testing.assert_allclose(
-                np.asarray(g[k]), np.asarray(ref_g[k]), atol=1e-5,
+                np.asarray(g[k]), np.asarray(ref_g[k]), rtol=0.05, atol=1e-4,
                 err_msg=k,
             )
 

@@ -235,43 +235,43 @@ def test_gradients_match_fd_over_random_params():
         assert got == pytest.approx(fd, rel=0.1, abs=2e-3), (key, got, fd)
 
 
-def test_diff_render_pallas_march_matches_xla():
-    """The SMEM-parameter Pallas march (interpret mode) must reproduce the
-    XLA march inside the differentiable render — images AND gradients (the
-    march is stopped; gradients flow through the IFT reattachment only)."""
+def test_diff_render_slab_cull_matches_uncull():
+    """The slab cull inside the differentiable render (``bb``) must not
+    change the image or the gradients: culled rays provably cannot collide,
+    and the march is stopped, so gradients flow through the IFT
+    reattachment only."""
     from bsdmg_tpu.grad.diff_render import _render_image_diff_c
     from bsdmg_tpu.models import reference_render_scene
+    from bsdmg_tpu.ops.pallas.csdf import scene_bounds
 
     scene = reference_render_scene()
     params = dict(scene.params)
     params["sphere_radius"] = jnp.float32(1.2)
-    cam = look_at((5.0, 2.0, -5.0), fov=np.pi / 4)
+    lo, hi, slack = scene_bounds(scene)
+    bb = (tuple(v - 0.6 for v in lo), tuple(v + 0.6 for v in hi), slack)
+    cam = look_at((6.0, 3.0, -6.0), fov=np.pi / 2.5)  # wide: many rays cull
     o, d, c = generate_rays(cam, (64, 32), (1920.0, 1080.0))
 
-    def img_fn(p, use_pallas):
-        return _render_image_diff_c(
-            scene.csdf, p, o, d, c, use_pallas=use_pallas, interpret=True
-        )
+    def img_fn(p, box):
+        return _render_image_diff_c(scene.csdf, p, o, d, c, bb=box)
 
-    a = np.asarray(img_fn(params, False))
-    b = np.asarray(img_fn(params, True))
+    a = np.asarray(img_fn(params, None))
+    b = np.asarray(img_fn(params, bb))
     np.testing.assert_allclose(a, b, atol=1e-5)
 
-    ga = jax.grad(lambda p: jnp.sum(img_fn(p, False)))(params)
-    gb = jax.grad(lambda p: jnp.sum(img_fn(p, True)))(params)
+    ga = jax.grad(lambda p: jnp.sum(img_fn(p, None)))(params)
+    gb = jax.grad(lambda p: jnp.sum(img_fn(p, bb)))(params)
     for k in ga:
         np.testing.assert_allclose(
             np.asarray(ga[k]), np.asarray(gb[k]), rtol=1e-4, atol=1e-5, err_msg=k
         )
 
 
-def test_fused_loss_grad_matches_oracle():
-    """The single-kernel fused loss+grad (in-kernel reverse-mode, SMEM
-    accumulation; interpret mode) == jax.value_and_grad of the XLA diff
-    render, at a non-default parameter point with a non-trivial target."""
-    from bsdmg_tpu.grad.diff_render import _render_image_diff_c
+def test_loss_and_grad_matches_value_and_grad():
+    """``render_loss_and_grad`` (the fit's training step) == an explicit
+    ``jax.value_and_grad`` of the differentiable render's L2 loss, at a
+    non-default parameter point with a non-trivial target."""
     from bsdmg_tpu.models import reference_render_scene
-    from bsdmg_tpu.ops.pallas.diff_kernel import render_loss_grad_pallas
 
     scene = reference_render_scene()
     params = {
@@ -286,17 +286,17 @@ def test_fused_loss_grad_matches_oracle():
     target = jnp.asarray(rng.uniform(0, 1, (32, 64, 3)), jnp.float32)
 
     def loss_fn(p):
-        img = _render_image_diff_c(scene.csdf, p, o, d, c, use_pallas=False)
+        img = render_image_diff(scene.sdf, p, o, d, c, csdf=scene.csdf)
         return jnp.mean((img - target) ** 2)
 
     ref_loss, ref_g = jax.value_and_grad(loss_fn)(params)
-    loss, g = render_loss_grad_pallas(
-        scene.csdf, params, target, o, d, c, interpret=True
-    )
-    assert float(loss) == pytest.approx(float(ref_loss), rel=1e-4)
+    loss, g = jax.jit(
+        lambda p: render_loss_and_grad(scene.sdf, p, target, o, d, c, csdf=scene.csdf)
+    )(params)
+    assert float(loss) == pytest.approx(float(ref_loss), rel=1e-5)
     for k in ref_g:
         np.testing.assert_allclose(
-            np.asarray(g[k]), np.asarray(ref_g[k]), rtol=1e-3, atol=1e-5,
+            np.asarray(g[k]), np.asarray(ref_g[k]), rtol=1e-4, atol=1e-7,
             err_msg=k,
         )
 
@@ -305,8 +305,8 @@ class TestSilhouetteAwareGradients:
     """The envelope-theorem closest-approach loss (grad/edge.py): boundary
     gradients for outcome-flipping perturbations that pure IFT cannot see.
 
-    Round-2 basin measurement: the photometric-only AD gradient flips sign
-    vs the true loss slope beyond r ~ 1.15 (VERDICT r2 #3). The edge term
+    The photometric-only AD gradient flips sign vs the true loss slope
+    beyond r ~ 1.15. The edge term
     must extend the usable basin to at least +-25% (and is probed at +-50%).
     """
 
@@ -354,21 +354,19 @@ class TestSilhouetteAwareGradients:
         else:
             assert gr < 0, f"gradient {gr} should push radius up at {factor}x"
 
-    def test_fused_edge_kernel_matches_oracle(self):
-        """Fused Pallas loss+grad with the edge term (interpret mode) ==
-        the XLA edge-aware oracle, including the closest-approach record."""
-        from bsdmg_tpu.ops.pallas.diff_kernel import render_loss_grad_pallas
-
+    def test_edge_loss_cull_invariant(self):
+        """The edge-aware loss and its gradient are the same with and
+        without the slab cull: culled rays miss in the render and in the
+        target, so they carry no closest-approach term either way."""
         scene, o, d, c, true_params, bb, target = self._setup()
         p = dict(true_params)
         p["sphere_radius"] = p["sphere_radius"] * 1.25
         ref_loss, ref_g = render_loss_and_grad(
-            scene.sdf, p, target, o, d, c, csdf=scene.csdf, bb=bb,
-            edge_weight=1.0, use_fused=False,
+            scene.sdf, p, target, o, d, c, csdf=scene.csdf, edge_weight=1.0,
         )
-        loss, g = render_loss_grad_pallas(
-            scene.csdf, p, target, o, d, c, bb=bb, edge_weight=1.0,
-            interpret=True,
+        loss, g = render_loss_and_grad(
+            scene.sdf, p, target, o, d, c, csdf=scene.csdf, bb=bb,
+            edge_weight=1.0,
         )
         assert float(loss) == pytest.approx(float(ref_loss), rel=1e-4)
         for k in ref_g:
@@ -395,7 +393,7 @@ class TestSilhouetteAwareGradients:
             np.testing.assert_array_equal(np.asarray(g0[k]), np.asarray(g1[k]))
 
     def test_joint_fit_recovers_25pct_perturbation(self):
-        """The VERDICT r2 #7 acceptance: a 25% radius perturbation (plus
+        """A 25% radius perturbation (plus
         30% in smooth_k and line width) is jointly recovered by adam on the
         edge-aware loss."""
         import optax

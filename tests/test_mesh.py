@@ -278,46 +278,83 @@ class TestComponentFormParity:
         )
 
 
-class TestPallasProjection:
-    @pytest.mark.parametrize("use_fused", [False, True])
-    def test_pallas_projection_matches_xla(self, use_fused):
-        """Both Pallas MC backends (interpret mode), pinned BY NAME, must
-        agree with the whole-batch XLA oracle path on positions, normals and
-        validity — the mesh-pipeline link of the oracle chain.
+def _mc_oracle(sdf_np, lowers, vs, tol, iters):
+    """NumPy marching cubes in float64, one voxel at a time: 256-case table,
+    edge midpoints (marching_cubes.cu:14), Newton projection with the
+    reference's fd4 normal (signed_distance.cu:181-240). Returns each
+    triangle as a (3, 3) array of its vertices."""
+    from bsdmg_tpu.ops.tables import MC_EDGE_MIDPOINTS
 
-        ``use_fused=False`` exercises the staged kernel
-        (ops/pallas/mesh_kernel.py::project_edges_pallas — still the
-        production path for ``interpolate_edges=True``); ``use_fused=True``
-        the single fused kernel (ops/pallas/mc_fused.py). Pinning both
-        explicitly keeps a default flip from silently dropping coverage
-        (round-3 VERDICT weak item 1)."""
-        from bsdmg_tpu.config import MeshGenConfig
-        from bsdmg_tpu.mesh import create_voxel_field, refine_field
-        from bsdmg_tpu.models import reference_object
+    def fd4(p, e=1e-3):
+        g = np.zeros(3)
+        for a in range(3):
+            h = np.zeros(3)
+            h[a] = e
+            g[a] = (-sdf_np(p + 2 * h) + 8 * sdf_np(p + h)
+                    - 8 * sdf_np(p - h) + sdf_np(p - 2 * h))
+        return g / np.linalg.norm(g)
+
+    def project(p):
+        for _ in range(iters):
+            sd = sdf_np(p)
+            if abs(sd) <= tol:
+                break
+            p = p - sd * fd4(p)
+        return p
+
+    tris = []
+    for lo in lowers:
+        vals = [sdf_np(lo + MC_CORNER_OFFSETS[i] * vs) for i in range(8)]
+        case = sum(1 << i for i in range(8) if vals[i] <= 0.0)
+        for edges in MC_TRIANGLE_CASES[case]:
+            if edges[0] < 0:
+                break
+            verts = [project(lo + MC_EDGE_MIDPOINTS[e] * vs) for e in edges]
+            tris.append(verts)
+    return np.asarray(tris)
+
+
+class TestStagedProjection:
+    @pytest.mark.parametrize("edge_budget", [6, 12])
+    def test_staged_mc_matches_numpy_oracle(self, edge_budget):
+        """The staged XLA extraction (corner classify, table gather,
+        rank-compacted Newton projection, slot pick, winding fix) emits the
+        same triangles as a float64 per-voxel NumPy oracle, with the
+        compacted (6) and full (12) edge layouts alike."""
+        import dataclasses
+
         from bsdmg_tpu.ops.marching_cubes import extract_triangles
         from bsdmg_tpu.ops.pallas import compile_scene_csdf
 
         scene = reference_object()
         csdf = compile_scene_csdf(scene)
-        cfg = MeshGenConfig(init_factor=8)
+        cfg = dataclasses.replace(MeshGenConfig(init_factor=8), edge_budget=edge_budget)
         field = refine_field(scene.bind(), create_voxel_field(cfg), cfg, csdf=csdf)
-        vs = jnp.float32(field.voxel_size)
-        cnt = jnp.int32(field.count)
-        a = extract_triangles(
-            scene.bind(), field.lowers, vs, cnt, cfg, csdf,
-            use_pallas=False, use_fused=False,
+        soup = extract_triangles(
+            scene.bind(), field.lowers, jnp.float32(field.voxel_size),
+            jnp.int32(field.count), cfg, csdf,
         )
-        b = extract_triangles(
-            scene.bind(), field.lowers, vs, cnt, cfg, csdf,
-            use_pallas=True, use_fused=use_fused, interpret=True,
+        from scipy.spatial import cKDTree
+
+        valid = np.asarray(soup.valid).reshape(-1)
+        got = np.asarray(soup.positions).reshape(-1, 3, 3)[valid]
+
+        import oracle
+
+        want = _mc_oracle(
+            oracle.sd_obj, np.asarray(field.live_lowers(), np.float64),
+            field.voxel_size, cfg.newton_tolerance, cfg.newton_iters,
         )
-        np.testing.assert_array_equal(np.asarray(a.valid), np.asarray(b.valid))
-        np.testing.assert_allclose(
-            np.asarray(a.positions), np.asarray(b.positions), atol=2e-5
-        )
-        np.testing.assert_allclose(
-            np.asarray(a.normals), np.asarray(b.normals), atol=2e-4
-        )
+        assert got.shape == want.shape
+
+        # match triangles as vertex sets (the winding fix may swap vertex
+        # order): one-to-one nearest neighbours within 1e-4
+        flat = lambda t: np.stack(
+            [t[i, np.lexsort(t[i].round(3).T[::-1])] for i in range(len(t))]
+        ).reshape(len(t), 9)
+        dist, idx = cKDTree(flat(want)).query(flat(got))
+        assert dist.max() < 1e-4, dist.max()
+        assert len(set(idx.tolist())) == len(idx)
 
 
 class TestMeshQuality:
@@ -467,16 +504,6 @@ class TestEdgeCompaction:
             dataclasses.replace(cfg, edge_budget=12), checker_c,
         )
         assert int(np.asarray(soup.valid).sum()) < int(np.asarray(full.valid).sum())
-        # the fused kernel's in-register overflow accounting (meta plane,
-        # ops/pallas/mc_fused.py) must match the XLA path exactly
-        fused = extract_triangles(
-            checker, lowers, jnp.float32(1.0), jnp.int32(3), cfg, checker_c,
-            use_pallas=True, use_fused=True, interpret=True,
-        )
-        assert int(fused.edge_overflow) == int(soup.edge_overflow)
-        np.testing.assert_array_equal(
-            np.asarray(fused.valid), np.asarray(soup.valid)
-        )
 
         # the wrapper retry restores the full set
         field = VoxelField(lowers=lowers, count=3, voxel_size=1.0, level=0)

@@ -1,22 +1,49 @@
-"""Pallas kernel tests (interpreter mode on CPU) against the pure-JAX oracle."""
+"""The Triton render kernel (interpreter mode on CPU) against the XLA
+march, its lowering to Triton for CUDA, the backend choice, and the baked
+component-form scenes it renders."""
 
+import os
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from bsdmg_tpu.cam import generate_rays, look_at
-from bsdmg_tpu.config import MarchConfig
 from bsdmg_tpu.models import box_scene, reference_render_scene, sphere_scene
-from bsdmg_tpu.ops.shade import render_image
-from bsdmg_tpu.ops.trace import COLLISION, sphere_trace
-from bsdmg_tpu.ops.pallas import compile_scene_csdf, sphere_trace_pallas
-from bsdmg_tpu.ops.pallas.csdf import scene_bounds
-from bsdmg_tpu.ops.pallas.render_kernel import render_image_pallas, trace_pallas
+from bsdmg_tpu.ops.pallas import compile_scene_csdf
+from bsdmg_tpu.ops.pallas.csdf import compile_scene_split, scene_bounds
+from bsdmg_tpu.ops.pallas.render_triton import render_image_triton
+from bsdmg_tpu.ops.shade import render_image_c
+
+EXAMPLES = os.path.join(os.path.dirname(__file__), os.pardir, "examples")
 
 
-def _rays(scene_cam=(5.0, 2.0, -5.0), w=256, h=64):
+def _rays(scene_cam=(5.0, 2.0, -5.0), w=64, h=24):
     cam = look_at(scene_cam, fov=np.pi / 4)
     return generate_rays(cam, (w, h), (1920.0, 1080.0))
+
+
+def _scene(name):
+    if name.endswith(".json"):
+        from bsdmg_tpu.models.compose import load_scene_spec
+
+        return load_scene_spec(os.path.join(EXAMPLES, name))
+    return {
+        "reference_render_scene": reference_render_scene,
+        "sphere": lambda: sphere_scene(1.0),
+        "box": lambda: box_scene((2.0, 1.0, 0.5)),
+    }[name]()
+
+
+def _xla(scene, o, d, c):
+    """The XLA march of the param-traced scene (of the baked one for scenes
+    that have no param-traced form)."""
+    baked = compile_scene_csdf(scene)
+    cfn = scene.csdf or (lambda _, x, y, z: baked(x, y, z))
+    return np.asarray(jax.jit(
+        lambda o_, d_, c_: render_image_c(cfn, scene.params, o_, d_, c_)
+    )(o, d, c))
 
 
 class TestCsdf:
@@ -56,187 +83,107 @@ class TestCsdf:
         assert compile_scene_csdf(dummy) is None
 
 
-class TestPallasTracer:
-    def test_matches_pure_tracer(self):
-        scene = reference_render_scene()
-        csdf = compile_scene_csdf(scene)
-        origins, dirs, cone = _rays()
-        ref = sphere_trace(scene.bind(), origins, dirs, cone)
-        pal = sphere_trace_pallas(csdf, origins, dirs, cone, interpret=True)
-        np.testing.assert_array_equal(np.asarray(ref.outcome), np.asarray(pal.outcome))
-        np.testing.assert_array_equal(np.asarray(ref.steps), np.asarray(pal.steps))
-        coll = np.asarray(ref.outcome) == COLLISION
-        depth_diff = np.abs(np.asarray(ref.depth) - np.asarray(pal.depth))
-        assert depth_diff[coll].max() < 1e-4
-
-    def test_non_tile_aligned_shapes(self):
-        scene = sphere_scene(1.0)
-        csdf = compile_scene_csdf(scene)
-        origins, dirs, cone = _rays(w=100, h=37)  # not multiples of (8, 128)
-        ref = sphere_trace(scene.bind(), origins, dirs, cone)
-        pal = sphere_trace_pallas(csdf, origins, dirs, cone, interpret=True)
-        assert pal.outcome.shape == (37, 100)
-        np.testing.assert_array_equal(np.asarray(ref.outcome), np.asarray(pal.outcome))
-
-    # tail_cap=512 is a regression pin: a cap that is a multiple of 128 but
-    # not of the 8x128 tile once floor-divided phase B's grid to zero and
-    # scattered uninitialized planes onto active rays
-    @pytest.mark.parametrize(
-        "two_phase,tail_cap",
-        [(False, None), (True, None), (True, 1024), (True, 512)],
-    )
-    def test_trace_pipeline(self, two_phase, tail_cap):
-        scene = reference_render_scene()
-        csdf = compile_scene_csdf(scene)
-        bb = scene_bounds(scene)
-        origins, dirs, cone = _rays()
-        ref = sphere_trace(scene.bind(), origins, dirs, cone)
-        depth, steps, outcome = trace_pallas(
-            csdf, origins, dirs, cone, bb=bb, two_phase=two_phase,
-            tail_cap=tail_cap, interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(ref.outcome), np.asarray(outcome))
-        coll = np.asarray(ref.outcome) == COLLISION
-        depth_diff = np.abs(np.asarray(ref.depth) - np.asarray(depth))
-        assert depth_diff[coll].max() < 1e-3
-
-
 class TestPallasRender:
-    @pytest.mark.parametrize("two_phase", [False, True, "block"])
-    def test_matches_pure_render(self, two_phase):
-        scene = reference_render_scene()
-        csdf = compile_scene_csdf(scene)
-        bb = scene_bounds(scene)
-        origins, dirs, cone = _rays()
-        ref = np.asarray(render_image(scene.bind(), origins, dirs, cone))
-        img = np.asarray(
-            render_image_pallas(
-                csdf, origins, dirs, cone, bb=bb, two_phase=two_phase, interpret=True
-            )
-        )
+    @pytest.mark.parametrize(
+        "name",
+        ["reference_render_scene", "sphere", "box", "snowman.json",
+         "gadget.json", "mushroom.json"],
+    )
+    def test_matches_pure_render(self, name):
+        """Kernel (slab cull + tile split + fused shade) == the XLA march."""
+        scene = _scene(name)
+        cam = (5.0, 2.0, -5.0) if name == "reference_render_scene" else (4.0, 2.0, -4.0)
+        o, d, c = _rays(cam)
+        ref = _xla(scene, o, d, c)
+        img = np.asarray(render_image_triton(
+            compile_scene_csdf(scene), o, d, c, bb=scene_bounds(scene),
+            split=compile_scene_split(scene), interpret=True,
+        ))
+        assert (ref.max(-1) > 0).mean() > 0.05  # something is in view
         diff = np.abs(img - ref).max(-1)
         assert np.mean(diff < 2e-2) == 1.0
         assert diff.mean() < 1e-4
 
-    def test_block_retirement_pixel_exact(self):
-        """Block-granule ray retirement must be pixel-identical to the
-        single-phase fused render (the march is resumable, so phases A+B
-        sample the same point sequence), including when the static block
-        cap overflows and the phase-C fallback finishes the leftovers."""
-        scene = reference_render_scene()
-        csdf = compile_scene_csdf(scene)
-        bb = scene_bounds(scene)
-        origins, dirs, cone = _rays()
-        base = np.asarray(
-            render_image_pallas(csdf, origins, dirs, cone, bb=bb, interpret=True)
-        )
-        blk = np.asarray(
-            render_image_pallas(
-                csdf, origins, dirs, cone, bb=bb, two_phase="block",
-                phase_a_steps=24, interpret=True,
-            )
-        )
-        np.testing.assert_array_equal(blk, base)
-        # tiny cap -> phase C must finish the overflow blocks exactly
-        tiny = np.asarray(
-            render_image_pallas(
-                csdf, origins, dirs, cone, bb=bb, two_phase="block",
-                phase_a_steps=8, tail_cap=4, interpret=True,
-            )
-        )
-        np.testing.assert_array_equal(tiny, base)
-        # ragged caps are normalized to the phase-B grid granule (a cap not
-        # a multiple of 4 once left whole gathered blocks unwritten and
-        # scattered uninitialized rows into the frame)
-        for cap in (2, 5):
-            ragged = np.asarray(
-                render_image_pallas(
-                    csdf, origins, dirs, cone, bb=bb, two_phase="block",
-                    phase_a_steps=8, tail_cap=cap, interpret=True,
-                )
-            )
-            np.testing.assert_array_equal(ragged, base)
-        # taller phase-A blocks (the sweepable ILP knob) change only the
-        # grid decomposition, never a pixel
-        for rows in (16, 64, 128):
-            tall = np.asarray(
-                render_image_pallas(
-                    csdf, origins, dirs, cone, bb=bb, two_phase="block",
-                    phase_a_steps=24, phase_a_rows=rows, interpret=True,
-                )
-            )
-            np.testing.assert_array_equal(tall, base)
-        # invalid heights are a loud error, not a silent fallback (a bench
-        # sweep must know the knob applied): non-divisor, sub-tile, zero
-        for rows in (96, 4, 0):
-            with pytest.raises(ValueError, match="phase_a_rows"):
-                render_image_pallas(
-                    csdf, origins, dirs, cone, bb=bb, two_phase="block",
-                    phase_a_steps=24, phase_a_rows=rows, interpret=True,
-                )
+    @pytest.mark.parametrize("hw", [(37, 100), (9, 17), (8, 16), (1, 3)])
+    def test_non_tile_aligned_shapes(self, hw):
+        """Ragged sizes pad to whole 8x16 tiles and crop back."""
+        h, w = hw
+        scene = sphere_scene(1.0)
+        o, d, c = _rays((0.0, 0.5, -3.0), w=w, h=h)
+        img = np.asarray(render_image_triton(
+            compile_scene_csdf(scene), o, d, c, bb=scene_bounds(scene),
+            interpret=True,
+        ))
+        assert img.shape == (h, w, 3)
+        np.testing.assert_allclose(img, _xla(scene, o, d, c), atol=1e-4)
 
     def test_bb_skip_safety(self):
-        """BB-skip must never change any pixel vs no-skip."""
+        """The slab cull must never change a pixel vs no cull."""
         scene = reference_render_scene()
         csdf = compile_scene_csdf(scene)
-        bb = scene_bounds(scene)
         # wide fov so plenty of rays miss the bb
         cam = look_at((6.0, 3.0, -6.0), fov=np.pi / 2.5)
-        origins, dirs, cone = generate_rays(cam, (256, 64), (1920.0, 1080.0))
-        a = np.asarray(
-            render_image_pallas(csdf, origins, dirs, cone, bb=bb, use_bb_skip=True, interpret=True)
-        )
-        b = np.asarray(
-            render_image_pallas(csdf, origins, dirs, cone, bb=bb, use_bb_skip=False, interpret=True)
-        )
+        o, d, c = generate_rays(cam, (64, 32), (1920.0, 1080.0))
+        a = np.asarray(render_image_triton(
+            csdf, o, d, c, bb=scene_bounds(scene), interpret=True))
+        b = np.asarray(render_image_triton(csdf, o, d, c, interpret=True))
         np.testing.assert_allclose(a, b, atol=1e-5)
 
 
-class TestOverRelaxation:
-    def test_relaxed_march_matches_exact(self):
-        """omega > 1 (Keinert safe over-relaxation) must land on the same
-        surface as the classic march within collision tolerance."""
-        scene = reference_render_scene()
-        csdf = compile_scene_csdf(scene)
-        bb = scene_bounds(scene)
-        origins, dirs, cone = _rays(w=128, h=32)
-        d0, s0, o0 = trace_pallas(
-            csdf, origins, dirs, cone, bb=bb, two_phase=False, interpret=True
-        )
-        d1, s1, o1 = trace_pallas(
-            csdf, origins, dirs, cone, bb=bb, two_phase=False, interpret=True,
-            omega=1.5,
-        )
-        assert (np.asarray(o0) == np.asarray(o1)).mean() > 0.995
-        both_hit = (np.asarray(o0) == COLLISION) & (np.asarray(o1) == COLLISION)
-        assert both_hit.any()
-        np.testing.assert_allclose(
-            np.asarray(d1)[both_hit], np.asarray(d0)[both_hit], atol=5e-3
-        )
+class TestTritonLowering:
+    @pytest.mark.parametrize("name", ["reference_render_scene", "mandelbulb"])
+    def test_lowers_to_triton_for_cuda(self, name):
+        """Every primitive the kernel uses has a Triton lowering: the jitted
+        render lowers for CUDA here, with no GPU, into one Triton call
+        (``jnp.arccos``/``jnp.arctan2`` of the mandelbulb included)."""
+        from jax import export
 
-    def test_config_relaxation_is_honored(self):
-        """MarchConfig.relaxation routes into the kernel when omega is None."""
-        scene = sphere_scene(1.0)
+        from bsdmg_tpu.models import get_scene
+
+        scene = get_scene(name)
         csdf = compile_scene_csdf(scene)
-        origins, dirs, cone = _rays(w=128, h=16)
-        cfg = MarchConfig(relaxation=1.4)
-        d, s, o = trace_pallas(
-            csdf, origins, dirs, cone, cfg, two_phase=False, interpret=True
-        )
-        d0, s0, o0 = trace_pallas(
-            csdf, origins, dirs, cone, two_phase=False, interpret=True
-        )
-        hit = (np.asarray(o) == COLLISION) & (np.asarray(o0) == COLLISION)
-        assert hit.any()
-        np.testing.assert_allclose(np.asarray(d)[hit], np.asarray(d0)[hit], atol=5e-3)
-        # the relaxed path actually ran: step sequences differ somewhere
-        assert (np.asarray(s) != np.asarray(s0)).any()
+        bb, split = scene_bounds(scene), compile_scene_split(scene)
+        o, d, c = _rays(w=32, h=16)
+        f = jax.jit(lambda o_, d_, c_: render_image_triton(
+            csdf, o_, d_, c_, bb=bb, split=split,
+        ))
+        exp = export.export(
+            f, platforms=["cuda"],
+            disabled_checks=[
+                export.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")
+            ],
+        )(o, d, c)
+        assert exp.mlir_module().count("__gpu$xla.gpu.triton") == 1
+
+
+class TestBackendChoice:
+    @pytest.mark.parametrize(
+        "platform,expect", [("gpu", True), ("cpu", False), ("METAL", False)]
+    )
+    def test_use_render_kernel(self, monkeypatch, platform, expect):
+        from bsdmg_tpu import backend
+
+        monkeypatch.setattr(jax, "default_backend", lambda: platform)
+        assert backend.use_render_kernel() is expect
+
+
+@pytest.mark.gpu
+def test_kernel_matches_xla_on_gpu(gpu):
+    """On the card: the compiled kernel vs the XLA march at 1920x1080."""
+    scene = reference_render_scene()
+    o, d, c = _rays(w=1920, h=1080)
+    with jax.default_matmul_precision("highest"):
+        ref = _xla(scene, o, d, c)
+    img = np.asarray(render_image_triton(
+        compile_scene_csdf(scene), o, d, c, bb=scene_bounds(scene),
+        split=compile_scene_split(scene),
+    ))
+    diff = np.abs(img - ref).max(-1)
+    assert np.mean(diff < 2e-2) >= 0.995 and diff.mean() < 1e-3
 
 
 def test_mandelbulb_csdf_matches_scene():
     from bsdmg_tpu.models import mandelbulb_scene
-    from bsdmg_tpu.ops.pallas import compile_scene_csdf
-    from bsdmg_tpu.ops.pallas.csdf import scene_bounds
 
     scene = mandelbulb_scene()
     csdf = compile_scene_csdf(scene)
@@ -292,27 +239,17 @@ def test_csdf_parity_over_random_params():
 
 def test_split_specialization_matches_unsplit():
     """Per-tile scene specialization (compile_scene_split) must not change
-    the image: far-only tiles trace the exact far-scene and near rays are
+    the image: far-only tiles trace the exact far scene and near rays are
     conservatively classified (interpret mode)."""
-    from bsdmg_tpu.ops.pallas.csdf import compile_scene_split
-
     scene = reference_render_scene()
     csdf = compile_scene_csdf(scene)
     bb = scene_bounds(scene)
     split = compile_scene_split(scene)
     assert split is not None
-    cam = look_at((5.0, 2.0, -5.0), fov=np.pi / 4)
-    origins, dirs, cone = generate_rays(cam, (256, 64), (1920.0, 1080.0))
-
-    from bsdmg_tpu.ops.pallas.render_kernel import render_image_pallas
-
-    a = np.asarray(
-        render_image_pallas(csdf, origins, dirs, cone, bb=bb, interpret=True)
-    )
+    o, d, c = _rays(w=128, h=48)
+    a = np.asarray(render_image_triton(csdf, o, d, c, bb=bb, interpret=True))
     b = np.asarray(
-        render_image_pallas(
-            csdf, origins, dirs, cone, bb=bb, split=split, interpret=True
-        )
+        render_image_triton(csdf, o, d, c, bb=bb, split=split, interpret=True)
     )
     diff = np.abs(a - b).max(-1)
     # step-count paths may differ on boundary pixels; colors must agree

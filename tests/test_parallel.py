@@ -159,24 +159,51 @@ def test_benchmark_scaling_mechanism():
 
 
 def test_scaling_overhead_proxy():
-    """Sharding must not ADD work: with the global workload fixed, the
-    sharded-over-8 paths may cost at most 25% more total compute than the
-    unsharded ones (total work on the 1-core virtual mesh == what real
-    chips would each run 1/N of). overhead <= 1.25 corresponds to
-    BASELINE's >= 0.8 scaling-efficiency target on the compute side; the
-    collective side is bounded separately by the HLO audit
-    (tests/test_collectives.py). Empirically this lands at <= 1.0 (the
-    per-shard march exits at its interleave-balanced maximum instead of
-    the global one); 1.25 leaves room for 1-core CPU timing noise without
-    ever passing a real regression (the render_sharded per-call-recompile
-    bug this benchmark caught measured 26x)."""
-    from bsdmg_tpu.bench import benchmark_scaling_overhead
+    """Sharding adds no work, counted rather than timed: repeated sharded
+    renders and train steps compile once, every device holds 1/N of the
+    rays and of the image, and the compiled per-device program does 1/N of
+    the unsharded program's FLOPs (XLA's cost analysis)."""
+    from bsdmg_tpu.config import MarchConfig
+    from bsdmg_tpu.ops.shade import render_image_c
+    from bsdmg_tpu.parallel.sharding import _render_sharded_c_jit, _train_step_jit
 
-    r = benchmark_scaling_overhead(width=128, height=128, iters=2)
-    assert r["devices"] == 8
-    assert np.isfinite(r["render_overhead"])
-    assert r["render_overhead"] <= 1.25
-    assert r["train_overhead"] <= 1.25
+    scene = reference_render_scene()
+    h, w = 32, 64
+    origins, dirs, cone = _rays(w, h)
+    mesh = make_mesh()
+    n = mesh.devices.size
+    o, d, c, _ = shard_rays(origins, dirs, cone, mesh)
+    assert {s.data.shape for s in o.addressable_shards} == {(h // n, w, 3)}
+
+    before = _render_sharded_c_jit._cache_size()
+    for _ in range(3):
+        img = render_sharded(scene.sdf, scene.params, o, d, c, mesh, csdf=scene.csdf)
+    assert _render_sharded_c_jit._cache_size() == before + 1
+    assert {s.data.shape for s in img.addressable_shards} == {(h // n, w, 3)}
+
+    def flops(lowered):
+        ca = lowered.compile().cost_analysis()
+        return float((ca[0] if isinstance(ca, list) else ca)["flops"])
+
+    out = NamedSharding(mesh, P("dp", "sp"))
+    per_device = flops(_render_sharded_c_jit.lower(
+        scene.csdf, MarchConfig(), False, out, scene.params, o, d, c
+    ))
+    whole = flops(jax.jit(
+        lambda o_, d_, c_: render_image_c(scene.csdf, scene.params, o_, d_, c_)
+    ).lower(origins, dirs, cone))
+    assert per_device * n == pytest.approx(whole, rel=0.1)
+
+    params = {k: v for k, v in scene.params.items()
+              if k not in ("object_center", "object_rotation")}
+    target = jax.device_put(jnp.zeros((h, w, 3), jnp.float32), out)
+    opt = optax.sgd(1e-3)
+    before = _train_step_jit._cache_size()
+    for _ in range(3):
+        p = jax.tree.map(lambda v: jnp.array(v, jnp.float32), params)
+        train_step(scene.sdf, p, opt.init(p), opt, target, o, d, c, mesh,
+                   csdf=scene.csdf)
+    assert _train_step_jit._cache_size() == before + 1
 
 
 def test_render_sharded_csdf_matches_points_path():
@@ -198,47 +225,30 @@ def test_render_sharded_csdf_matches_points_path():
 
 
 def test_render_sharded_pallas_matches_single_device():
-    """shard_map + fused kernel over the 8-device mesh == single-device
-    pure-JAX render (interpret mode on CPU)."""
-    import jax
-
-    from bsdmg_tpu.cam import generate_rays, look_at
-    from bsdmg_tpu.models import reference_render_scene
+    """shard_map + the tile kernel (interpret mode) over the 8-device mesh ==
+    the single-device XLA render, for ragged heights too (row bands are
+    padded to a whole number per device)."""
     from bsdmg_tpu.ops.pallas import compile_scene_csdf
-    from bsdmg_tpu.ops.pallas.csdf import scene_bounds
-    from bsdmg_tpu.ops.shade import render_image
-    from bsdmg_tpu.parallel import make_mesh, render_sharded_pallas, shard_rays
+    from bsdmg_tpu.ops.pallas.csdf import compile_scene_split, scene_bounds
+    from bsdmg_tpu.ops.shade import render_image_c
+    from bsdmg_tpu.parallel import render_sharded_kernel
 
     scene = reference_render_scene()
-    csdf = compile_scene_csdf(scene)
-    bb = scene_bounds(scene)
     cam = look_at((5.0, 2.0, -5.0), fov=np.pi / 4)
-    # 64 rows over 8 devices -> 8-row shards; 256 cols
-    origins, dirs, cone = generate_rays(cam, (256, 64), (1920.0, 1080.0))
+    origins, dirs, cone = generate_rays(cam, (96, 70), (1920.0, 1080.0))
     mesh = make_mesh()
-    # no shard_rays: the sharded kernel distributes swizzled blocks itself
-    img = np.asarray(
-        render_sharded_pallas(csdf, origins, dirs, cone, mesh, bb=bb, interpret=True)
-    )
-    ref = np.asarray(
-        jax.jit(lambda o, d, c: render_image(scene.bind(), o, d, c))(
-            origins, dirs, cone
-        )
-    )
+    img = np.asarray(render_sharded_kernel(
+        compile_scene_csdf(scene), origins, dirs, cone, mesh,
+        bb=scene_bounds(scene), split=compile_scene_split(scene),
+        interpret=True,
+    ))
+    ref = np.asarray(jax.jit(
+        lambda o, d, c: render_image_c(scene.csdf, scene.params, o, d, c)
+    )(origins, dirs, cone))
+    assert img.shape == ref.shape == (70, 96, 3)
     diff = np.abs(img - ref)
     assert (diff.max(-1) > 2e-2).mean() == 0.0
     assert diff.mean() < 1e-4
-
-    # per-shard block-granule retirement must be pixel-identical to the
-    # single-phase sharded render (the march is resumable; each shard
-    # compacts its own long-tail blocks)
-    blk = np.asarray(
-        render_sharded_pallas(
-            csdf, origins, dirs, cone, mesh, bb=bb, interpret=True,
-            two_phase="block", phase_a_steps=24,
-        )
-    )
-    np.testing.assert_array_equal(blk, img)
 
 
 class TestShardedMeshGeneration:
@@ -309,49 +319,38 @@ class TestShardedMeshGeneration:
         )
 
 
-class TestFusedTrainStep:
-    def test_fused_step_matches_xla_step(self):
-        """The fully-fused per-chip training step (fused Pallas loss+grad in
-        shard_map + psum, interpret mode) produces the same loss and moves
-        params the same way as the XLA value_and_grad step."""
-        import optax
-
-        from bsdmg_tpu.models import reference_render_scene
-        from bsdmg_tpu.parallel import make_mesh, shard_rays, train_step_fused
-
+class TestTrainStepMeshes:
+    @pytest.mark.parametrize("shape", [(8, 1), (4, 2)])
+    def test_step_matches_single_device(self, shape):
+        """The sharded training step (GSPMD value_and_grad, all-reduced
+        gradients, replicated update) gives the single-device step's loss
+        and updated params; only the reduction order differs."""
         scene = reference_render_scene()
         params = {
             k: v
             for k, v in scene.params.items()
             if k not in ("object_center", "object_rotation")
         }
-        origins, dirs, cone = _rays(128, 32)
+        origins, dirs, cone = _rays(64, 32)
         rng = np.random.default_rng(0)
-        target = jnp.asarray(rng.uniform(0, 1, (32, 128, 3)), jnp.float32)
-
-        # XLA reference loss+grad (single device)
-        def loss_fn(p):
-            img = render_image_diff(scene.sdf, p, origins, dirs, cone, csdf=scene.csdf)
-            return jnp.mean((img - target) ** 2)
-
-        ref_loss, ref_g = jax.value_and_grad(loss_fn)(params)
-
-        mesh = make_mesh(shape=(4, 2))
-        o, d, c, _ = shard_rays(origins, dirs, cone, mesh, interleave=False)
+        target = jnp.asarray(rng.uniform(0, 1, (32, 64, 3)), jnp.float32)
         opt = optax.sgd(1e-2)
-        opt_state = opt.init(params)
-        # the step donates params/opt_state buffers; snapshot before
-        params_np = {k: np.asarray(v) for k, v in params.items()}
-        new_p, _, loss = train_step_fused(
-            scene.csdf, params, opt_state, opt, target, o, d, c, mesh,
-            interpret=True,
-        )
-        assert float(loss) == pytest.approx(float(ref_loss), rel=1e-4)
-        for k in params_np:
-            expect = params_np[k] - 1e-2 * np.asarray(ref_g[k])
-            np.testing.assert_allclose(
-                np.asarray(new_p[k]), expect, rtol=1e-3, atol=1e-6, err_msg=k
+
+        def run(mesh):
+            o, d, c, _ = shard_rays(origins, dirs, cone, mesh, interleave=False)
+            tgt = jax.device_put(target, NamedSharding(mesh, P("dp", "sp")))
+            p = jax.tree.map(lambda v: jnp.array(v, jnp.float32), params)
+            new_p, _, loss = train_step(
+                scene.sdf, p, opt.init(p), opt, tgt, o, d, c, mesh,
+                csdf=scene.csdf,
             )
+            return float(loss), {k: np.asarray(v) for k, v in new_p.items()}
+
+        loss1, p1 = run(make_mesh(jax.devices()[:1], shape=(1, 1)))
+        lossn, pn = run(make_mesh(shape=shape))
+        assert lossn == pytest.approx(loss1, rel=1e-4)
+        for k in p1:
+            np.testing.assert_allclose(pn[k], p1[k], rtol=1e-4, atol=1e-6, err_msg=k)
 
 
 def test_sharded_field_gather_roundtrip():
@@ -379,39 +378,28 @@ def test_sharded_field_gather_roundtrip():
 
 
 def test_render_grid_sharded_matches_single():
-    """Mesh-asset serving under shard_map: the contraction-ladder grid
-    renderer striped across the 8-device mesh must reproduce the
-    single-device image exactly (everything per-shard is local — ladder,
-    compacted finish, compacted normals; only the reshard crosses chips)."""
-    import jax.numpy as jnp
-    import numpy as np
+    """Mesh-asset serving over the 8-device mesh: the sharded XLA march over
+    the baked grid reproduces the single-device image."""
+    from bsdmg_tpu.models.mesh_sdf import SdfGrid, grid_scene
+    from bsdmg_tpu.ops.shade import render_image_c
 
-    from bsdmg_tpu.cam import generate_rays, look_at
-    from bsdmg_tpu.models.mesh_sdf import SdfGrid
-    from bsdmg_tpu.ops.pallas.grid_kernel import (
-        make_contraction_levels, render_image_grid,
-    )
-    from bsdmg_tpu.parallel.sharding import make_mesh, render_grid_sharded
-
-    r, lo, hi = 96, -1.5, 1.5  # >64: compacted XLA fine finish runs too
+    r, lo, hi = 48, -1.5, 1.5
     ax = np.linspace(lo, hi, r, dtype=np.float32)
     X, Y, Z = np.meshgrid(ax, ax, ax, indexing="ij")
     vals = np.sqrt(X * X + Y * Y + Z * Z) - 1.0
-    grid = SdfGrid(values=vals, lo=(lo,) * 3, hi=(hi,) * 3)
-    levels = make_contraction_levels(grid)
+    scene = grid_scene(SdfGrid(values=vals, lo=(lo,) * 3, hi=(hi,) * 3))
 
     cam = look_at((2.5, 1.0, -2.5), (0.0, 0.0, 0.0), fov=np.pi / 4)
     h, w = 64, 128
     origins, dirs, cone = generate_rays(cam, (w, h), (float(w), float(h)))
-
-    single = np.asarray(render_image_grid(
-        grid, origins, dirs, cone, mode="contraction", levels=levels,
-        interpret=True,
-    ))
+    single = np.asarray(jax.jit(
+        lambda o, d, c: render_image_c(scene.csdf, scene.params, o, d, c)
+    )(origins, dirs, cone))
     mesh = make_mesh()
-    sharded = np.asarray(render_grid_sharded(
-        grid, origins, dirs, cone, mesh, levels=levels, interpret=True,
-    ))
+    o, d, c, unpermute = shard_rays(origins, dirs, cone, mesh)
+    sharded = unpermute(np.asarray(render_sharded(
+        scene.sdf, scene.params, o, d, c, mesh, csdf=scene.csdf,
+    )))
     assert np.isfinite(sharded).all()
-    match = np.all(np.abs(single - sharded) < 1e-5, axis=-1).mean()
+    match = np.all(np.abs(single - sharded) < 1e-4, axis=-1).mean()
     assert match > 0.999, float(match)

@@ -3,40 +3,44 @@
 The BASELINE north star is "profiled vs speed-of-light per chip" for every
 kernel; these tests pin the analytic models' structure so the published
 percentages can't silently drift: the FLOP count comes from XLA's own cost
-analysis, the MC step count from a measured re-execution of the fused
-kernel's while-loop schedule, and each stage's bound (compute vs HBM) is
-asserted by name.
+analysis, the peaks from a table keyed by the device kind (an unknown
+device is an error), and each stage's bound (compute vs memory) is asserted
+by name.
 """
 
 import pytest
 
 from bsdmg_tpu.utils.profiling import (
+    PEAKS,
     Roofline,
     csdf_flops_per_eval,
-    grad_roofline,
-    mc_roofline,
+    device_peaks,
     refine_roofline,
     render_roofline,
 )
 
+H100 = "NVIDIA H100 80GB HBM3"
+
 
 class TestRoofline:
     def test_seconds_is_max_of_compute_and_memory(self):
-        r = Roofline(1000, 10.0, 100.0, total_bytes=0.0)
+        r = Roofline(1000, 10.0, 100.0, *PEAKS[H100], total_bytes=0.0)
         assert r.seconds == r.compute_seconds
         assert r.bound == "compute"
-        heavy = Roofline(1000, 10.0, 100.0, total_bytes=1e12)
+        heavy = Roofline(1000, 10.0, 100.0, *PEAKS[H100], total_bytes=1e12)
         assert heavy.seconds == heavy.memory_seconds
         assert heavy.bound == "memory"
 
     def test_efficiency_inverse_in_measured_time(self):
-        r = render_roofline(1920, 1080, avg_steps=50.0)
+        r = render_roofline(1920, 1080, avg_steps=50.0, device_kind=H100)
         assert r.efficiency(2 * r.seconds) == pytest.approx(0.5)
 
-    def test_grad_exceeds_render(self):
-        fwd = render_roofline(512, 512, avg_steps=50.0)
-        bwd = grad_roofline(512, 512, avg_steps=50.0)
-        assert bwd.seconds > fwd.seconds
+    def test_h100_peaks_from_data_sheet(self):
+        # NVIDIA H100 SXM data sheet: 67 TFLOP/s fp32, 3.35 TB/s
+        assert device_peaks(H100) == (67e12, 3.35e12)
+        r = render_roofline(1000, 1, avg_steps=1.0, ops_per_eval=67,
+                            device_kind=H100)
+        assert r.compute_seconds == pytest.approx(1e-9)
 
 
 class TestCsdfFlops:
@@ -53,45 +57,35 @@ class TestCsdfFlops:
         # the render scene adds the frame skeleton: strictly more work
         assert ren > obj
 
-    def test_fallback_on_uncompilable(self):
-        assert csdf_flops_per_eval(object(), fallback=42.0) == 42.0
+    def test_uncompilable_is_an_error(self):
+        with pytest.raises(TypeError):
+            csdf_flops_per_eval(object())
+
+    def test_unknown_device_kind_is_an_error(self):
+        import jax
+
+        # the CPU test platform has no published peak: no silent default
+        with pytest.raises(ValueError, match="no published peaks"):
+            device_peaks()
+        with pytest.raises(ValueError):
+            render_roofline(64, 64, avg_steps=1.0,
+                            device_kind=jax.devices()[0].device_kind)
 
 
 class TestStageRooflines:
     def test_refine_is_memory_bound(self):
-        # the blocked-compaction traffic hits the HBM wall before the
-        # 27-evals-per-parent lattice hits the VPU wall
-        r = refine_roofline(262144, ops_per_eval=55.0)
+        # the blocked-compaction traffic hits the memory wall before the
+        # 27-evals-per-parent lattice hits the compute wall
+        r = refine_roofline(262144, ops_per_eval=55.0, device_kind=H100)
         assert r.bound == "memory"
         assert r.total_ops == 262144 * 27 * 55.0
 
-    def test_mc_is_compute_bound(self):
-        r = mc_roofline(66560, budget=6, newton_steps=5.0,
-                        ops_per_eval=55.0)
-        assert r.bound == "compute"
-        # more Newton steps -> strictly slower light speed
-        r2 = mc_roofline(66560, budget=6, newton_steps=10.0,
-                         ops_per_eval=55.0)
-        assert r2.seconds > r.seconds
+    def test_render_step_stats_tiles(self):
+        """The roofline's step count comes from the march itself, reduced
+        over the render kernel's pixel tiles: the per-tile max bounds the
+        per-ray mean from above and the frame max from below."""
+        from bsdmg_tpu.bench import render_step_stats
 
-
-class TestMcStepStats:
-    def test_measured_newton_schedule(self):
-        from bsdmg_tpu.bench import mc_step_stats
-        from bsdmg_tpu.config import MeshGenConfig
-        from bsdmg_tpu.ops.pallas.mc_fused import _CHUNK
-
-        cfg = MeshGenConfig()
-        s = mc_step_stats(init_factor=16, levels=1)
-        assert s["budget"] == min(cfg.edge_budget, 12)
-        assert 0 < s["voxels"] <= s["padded_lanes"]
-        assert s["padded_lanes"] % (8 * 128) == 0
-        # Newton on this SDF converges in a handful of steps
-        assert 1.0 <= s["mean_needed_steps"] <= cfg.newton_iters
-        assert s["max_steps"] <= cfg.newton_iters
-        # the block schedule is chunk-rounded and can only exceed the
-        # per-lane need (it executes the per-block max)
-        assert s["mean_block_steps"] >= s["mean_needed_steps"]
-        assert s["mean_block_steps"] <= (
-            -(-s["max_steps"] // _CHUNK) * _CHUNK
-        )
+        s = render_step_stats(64, 32)
+        assert 0 < s["mean_steps"] <= s["mean_tile_max_steps"] <= s["max_steps"]
+        assert s["max_steps"] <= 256

@@ -150,15 +150,15 @@ class TestGoldenRender:
 
 class TestCachedGolden:
     def test_reference_scene_256px_cached(self):
-        """Full fused Pallas pipeline (swizzle + BB skip + shade, interpret
-        mode) vs the committed 256x144 oracle render — the full-resolution
-        regression pin that is too slow to oracle-render per run
-        (tests/golden/generate.py regenerates it)."""
+        """The Triton tile kernel (slab cull + tile split + fused shade,
+        interpret mode) vs the committed 256x144 oracle render — the
+        full-resolution regression pin that is too slow to oracle-render
+        per run (tests/golden/generate.py regenerates it)."""
         import os
 
         from bsdmg_tpu.ops.pallas import compile_scene_csdf
-        from bsdmg_tpu.ops.pallas.csdf import scene_bounds
-        from bsdmg_tpu.ops.pallas.render_kernel import render_image_pallas
+        from bsdmg_tpu.ops.pallas.csdf import compile_scene_split, scene_bounds
+        from bsdmg_tpu.ops.pallas.render_triton import render_image_triton
 
         path = os.path.join(
             os.path.dirname(__file__), "golden", "render_256x144.npz"
@@ -171,9 +171,10 @@ class TestCachedGolden:
         bb = scene_bounds(scene)
         cam = look_at((5.0, 2.0, -5.0), fov=np.pi / 4)
         origins, dirs, cone = generate_rays(cam, (256, 144), (1920.0, 1080.0))
-        img = np.asarray(
-            render_image_pallas(csdf, origins, dirs, cone, bb=bb, interpret=True)
-        )
+        img = np.asarray(render_image_triton(
+            csdf, origins, dirs, cone, bb=bb, split=compile_scene_split(scene),
+            interpret=True,
+        ))
 
         # float32 kernel vs float64 oracle: near-exact away from silhouettes
         diff = np.abs(img - golden).max(axis=-1)
@@ -187,11 +188,11 @@ class TestReferenceTargetOperatingPoint:
         (src/renderer/mod.rs:10) — a smaller per-pixel cone radius than the
         1080p goldens. Pin that operating point with a 64x36 tile at the
         image center (object silhouette in frame): full-resolution ray/cone
-        math, tile-sized cost, fused Pallas kernel (interpret) vs the
+        math, tile-sized cost, the Triton tile kernel (interpret) vs the
         NumPy oracle's tile render."""
         from bsdmg_tpu.ops.pallas import compile_scene_csdf
         from bsdmg_tpu.ops.pallas.csdf import scene_bounds
-        from bsdmg_tpu.ops.pallas.render_kernel import render_image_pallas
+        from bsdmg_tpu.ops.pallas.render_triton import render_image_triton
 
         W, H = 2560, 1440
         TW, TH = 64, 36
@@ -208,7 +209,7 @@ class TestReferenceTargetOperatingPoint:
         assert 5.0e-4 < float(jnp.max(c)) < 6.5e-4
 
         img = np.asarray(
-            render_image_pallas(
+            render_image_triton(
                 compile_scene_csdf(scene), o, d, c,
                 bb=scene_bounds(scene), interpret=True,
             )
